@@ -1,0 +1,319 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path, detect (FAST, greedy selection) -> steered
+BRIEF -> cross-checked Hamming matching, on a batch of 64 frame pairs at
+752x480 with 200 features, plus the single-frame incremental re-detect path,
+all on the card.  It builds every CUDA kernel of the path from the sources in
+the checkout, holds each against its plain PyTorch version on the card, shows
+through the launch counters that the paths went through the kernels, checks
+the outputs against the port's CPU run on two frame pairs, and times it all
+with CUDA events.
+
+One JSON line per phase.  Before the last line: one JSON object describing
+every kernel, then the card's name and power limit as nvidia-smi gives them.
+The last line is ``{"ok": true, "device": {...}}``.  Any failed phase raises
+and the script exits non-zero without that line; so does a machine where
+``torch.cuda.is_available()`` is false.  It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+BATCH, ROWS, COLS, PICKS, RADIUS = 64, 480, 752, 200, 20
+SCENES = 8  # 8 scenes x 8 row shifts = 64 frames
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+SOURCE = "feature_detector_tpu_torch/kernels/csrc/greedy.cu"
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, iters: int, warmup_s: float = 0.25) -> float:
+    """Mean device time of ``fn`` in ms over ``iters`` calls, by CUDA events,
+    after calling it for at least ``warmup_s`` seconds: the card lowers its
+    clocks while idle (between phases the host works alone) and takes a
+    while under load to raise them again."""
+    t0 = time.perf_counter()
+    while True:
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t0 >= warmup_s:
+            break
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def greedy_bound_ms(batch: int, rows: int, cols: int, picks: int) -> float:
+    """Least time for greedy selection: read each map once, write each
+    output slot once (bytes), or one comparison per map element (f32 ops)."""
+    nbytes = batch * rows * cols * 4 + batch * 4 + batch * picks * 4 * 4
+    ops = batch * rows * cols
+    return 1e3 * max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S)
+
+
+def max_abs_err(torch, got, want) -> float:
+    return max(float((g.to(torch.float32) - w.to(torch.float32)).abs().max()) for g, w in zip(got, want))
+
+
+def near_bin_boundary(image: np.ndarray, uv: np.ndarray, bins: int = 30) -> np.ndarray:
+    """Features whose steering angle * bins / 2pi lies within 1e-4 of a
+    half-integer, where the card's and the CPU's float32 atan2 may round to
+    different bins."""
+    img = image.astype(np.int64)
+    x = np.clip(np.round(uv[:, 0]).astype(np.int64), 18, image.shape[1] - 19)
+    y = np.clip(np.round(uv[:, 1]).astype(np.int64), 18, image.shape[0] - 19)
+    d = np.arange(-8, 9)
+    out = np.zeros(len(uv), bool)
+    for i in range(len(uv)):
+        p = img[y[i] - 8 : y[i] + 9, x[i] - 8 : x[i] + 9]
+        t = np.arctan2((p * d[:, None]).sum(), (p * d[None, :]).sum()) * bins / (2 * np.pi)
+        out[i] = abs(abs(t - np.floor(t)) - 0.5) < 1e-4
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 2
+
+    from feature_detector_tpu_torch.core.config import BriefOptions, DetectorOptions, MatcherOptions
+    from feature_detector_tpu_torch.core.types import Features
+    from feature_detector_tpu_torch.frontend.descriptor import compute_descriptors
+    from feature_detector_tpu_torch.frontend.detector import detect_good_features, detect_good_features_batch
+    from feature_detector_tpu_torch.kernels import _build
+    from feature_detector_tpu_torch.kernels.detect import (
+        fast_candidates,
+        fast_response,
+        greedy_select_ref,
+        make_suppression_mask,
+    )
+    from feature_detector_tpu_torch.kernels.greedy import greedy_select
+    from feature_detector_tpu_torch.match.hamming import match_hamming
+    from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # 1. Device.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    emit("device", name=kind, count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, nvidia_smi=smi)
+
+    # 2. Build every kernel from the sources in the checkout.
+    t = time.perf_counter()
+    report = _build.build(ptxas_verbose=True)
+    emit("build", seconds=time.perf_counter() - t,
+         kernels={k: {"nvcc_seconds": v["seconds"],
+                      "ptxas": [ln.strip() for ln in v["log"].splitlines() if "Used" in ln or "spill" in ln]}
+                  for k, v in report.items()})
+
+    # 3. Kernel against its plain version on the card, at main-path shapes:
+    #    dense maps with ties and an all-zero frame, per-frame budgets.
+    rng = np.random.default_rng(0)
+    dense = np.round(rng.random((BATCH, ROWS, COLS), np.float32) * 16) / 16  # many ties
+    dense[dense < 0.25] = 0.0
+    dense[5] = 0.0
+    stops = rng.integers(0, PICKS + 1, BATCH).astype(np.int32)
+    stops[:4] = (PICKS, 0, 1, PICKS)
+    dense_t = torch.from_numpy(dense).to(dev)
+    stops_t = torch.from_numpy(stops).to(dev)
+    errs = {}
+    for b, cand, n_stop in ((BATCH, dense_t, stops_t), (1, dense_t[0], PICKS)):
+        got = greedy_select(cand, PICKS, n_stop, RADIUS)
+        torch.cuda.synchronize()
+        want = greedy_select_ref(cand, PICKS, n_stop, RADIUS)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"greedy kernel != plain at B={b}")
+        errs[b] = max_abs_err(torch, got, want)
+        picks = got[2].reshape(-1, PICKS).sum(1).cpu().numpy()
+        if b == BATCH:
+            check(picks[0] == PICKS and picks[1] == 0 and picks[5] == 0, "dense picks per frame")
+        emit("kernel_check", kernel="greedy_select", batch=b, shape=list(cand.shape), picks=PICKS,
+             radius=RADIUS, exact=True, max_abs_err=errs[b], picks_taken_mean=float(picks.mean()))
+
+    # 4. Main path: 64 frame pairs from 8 seeded scenes.
+    t = time.perf_counter()
+    scenes = [scene_uint8(synth_scene(np.random.default_rng(s), ROWS, COLS, rich_background=True)[0])
+              for s in range(SCENES)]
+    frames_a = np.stack([np.roll(sc, i, axis=0) for sc in scenes for i in range(BATCH // SCENES)])
+    frames_b = np.roll(frames_a, 3, axis=2)
+    emit("frames", shape=list(frames_a.shape), seconds=time.perf_counter() - t)
+    opts = DetectorOptions(min_feature_distance=RADIUS, min_valid_response=10.0, max_features=PICKS)
+    bopts, mopts = BriefOptions(), MatcherOptions()
+    ja = torch.from_numpy(frames_a).to(dev)
+    jb = torch.from_numpy(frames_b).to(dev)
+
+    def pipeline():
+        fa = detect_good_features_batch(ja, "fast", PICKS, opts)
+        fb = detect_good_features_batch(jb, "fast", PICKS, opts)
+        da = compute_descriptors(ja, fa, bopts)
+        db = compute_descriptors(jb, fb, bopts)
+        return fa, fb, da, db, match_hamming(da.words, da.valid, db.words, db.valid, mopts)
+
+    greedy_select.launches = 0
+    fa, fb, da, db, m = pipeline()
+    torch.cuda.synchronize()
+    batch_launches = greedy_select.launches
+    check(batch_launches == 2, f"main path launched the greedy kernel {batch_launches} times, not 2")
+    check(fa.uv.shape == (BATCH, PICKS, 2) and da.words.shape == (BATCH, PICKS, 8), "output shapes")
+    check(bool(torch.isfinite(fa.uv).all() and torch.isfinite(fa.response).all()), "finite features")
+    kpts = fa.count.float().mean().item()
+    check(kpts > 10, f"too few keypoints per frame: {kpts}")
+    self_m = match_hamming(da.words, da.valid, da.words, da.valid, mopts)
+    check(bool(torch.equal(self_m.valid, da.valid)), "self-match: every describable feature matches")
+    check(bool((self_m.distance[da.valid] == 0).all()), "self-match distance 0")
+    emit("main_path", batch=BATCH, rows=ROWS, cols=COLS, greedy_launches=batch_launches,
+         keypoints_per_frame=kpts, describable_per_frame=da.count.float().mean().item(),
+         matches_per_pair=m.count.float().mean().item(),
+         self_matches=int(self_m.count.sum()), describable=int(da.count.sum()))
+
+    # The card's output against the port's CPU run (plain versions) on two pairs.
+    excused = 0
+    cpu = torch.device("cpu")
+    for i in (0, 9):
+        ca = detect_good_features_batch(torch.from_numpy(frames_a[i : i + 1]), "fast", PICKS, opts)
+        cb = detect_good_features_batch(torch.from_numpy(frames_b[i : i + 1]), "fast", PICKS, opts)
+        for got, want in ((fa, ca), (fb, cb)):
+            check(all(torch.equal(getattr(got, k)[i].to(cpu), getattr(want, k)[0]) for k in ("uv", "response", "valid")),
+                  f"features of frame {i} differ from the CPU run")
+        cda = compute_descriptors(torch.from_numpy(frames_a[i : i + 1]), ca, bopts)
+        cdb = compute_descriptors(torch.from_numpy(frames_b[i : i + 1]), cb, bopts)
+        for got, want, frame, feats in ((da, cda, frames_a[i], ca), (db, cdb, frames_b[i], cb)):
+            differ = (got.words[i].cpu() != want.words[0]).any(1).numpy() | (got.valid[i].cpu() != want.valid[0]).numpy()
+            near = near_bin_boundary(frame, feats.uv[0].numpy())
+            check(not (differ & ~near).any(), f"descriptors of frame {i} differ from the CPU run")
+            excused += int(differ.sum())
+        if excused == 0:
+            cm = match_hamming(cda.words, cda.valid, cdb.words, cdb.valid, mopts)
+            check(all(torch.equal(getattr(m, k)[i].cpu(), getattr(cm, k)[0]) for k in ("index", "distance", "valid")),
+                  f"matches of pair {i} differ from the CPU run")
+    emit("cpu_agreement", pairs=[0, 9], features_exact=True, bin_boundary_excused=excused)
+
+    # 5. Incremental path: one frame, half of an earlier detection as existing.
+    n_half = int(fa.count[0]) // 2
+    keep = torch.arange(PICKS, device=dev) < n_half
+    existing = Features(uv=fa.uv[0] * keep[:, None], response=fa.response[0] * keep, valid=fa.valid[0] & keep)
+    frame1 = jb[0]
+    greedy_select.launches = 0
+    inc = detect_good_features(frame1, existing, "fast", PICKS, opts)
+    torch.cuda.synchronize()
+    single_launches = greedy_select.launches
+    check(single_launches == 1, f"incremental path launched the greedy kernel {single_launches} times, not 1")
+    check(bool(torch.equal(inc.uv[:n_half], existing.uv[:n_half]) and inc.valid[:n_half].all()), "existing prefix kept")
+    n_total = int(inc.count)
+    new_uv = inc.uv[n_half:n_total].cpu().numpy()
+    old_uv = existing.uv[:n_half].cpu().numpy()
+    inside = (np.abs(new_uv[:, None, :] - old_uv[None, :, :]) <= RADIUS).all(-1)
+    check(n_total > n_half and not inside.any(), "new picks fall outside every existing square")
+    cpu_inc = detect_good_features(frame1.cpu(), existing.to("cpu"), "fast", PICKS, opts)
+    check(all(torch.equal(getattr(inc, k).cpu(), getattr(cpu_inc, k)) for k in ("uv", "response", "valid")),
+          "incremental result differs from the CPU run")
+    emit("incremental_path", existing=n_half, total=n_total, greedy_launches=single_launches)
+
+    # Kernel against plain on the paths' own candidate maps (not counted).
+    ones = torch.ones((ROWS, COLS), dtype=torch.int32, device=dev)
+    cand_batch = fast_candidates(fast_response(ja, ones), opts.min_valid_response)
+    mask1 = make_suppression_mask((ROWS, COLS), existing.uv, existing.valid, RADIUS)
+    cand_one = fast_candidates(fast_response(frame1, mask1), opts.min_valid_response)
+    stop_one = torch.tensor([PICKS - n_half], dtype=torch.int32, device=dev)
+    got_b = greedy_select(cand_batch, PICKS, PICKS, RADIUS)
+    want_b = greedy_select_ref(cand_batch, PICKS, PICKS, RADIUS)
+    got_1 = greedy_select(cand_one, PICKS, stop_one, RADIUS)
+    want_1 = greedy_select_ref(cand_one, PICKS, stop_one, RADIUS)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(got_b, want_b)), "kernel != plain on the main path's maps")
+    check(all(torch.equal(g, w) for g, w in zip(got_1, want_1)), "kernel != plain on the incremental map")
+    errs[BATCH] = max(errs[BATCH], max_abs_err(torch, got_b, want_b))
+    errs[1] = max(errs[1], max_abs_err(torch, got_1, want_1))
+
+    # 6. Times (CUDA events, after a warm-up).  One block runs each frame's
+    # pick chain, so the batch kernel lasts as long as its longest chain: the
+    # frame with the most picks is also timed alone.
+    picks_b64 = got_b[2].sum(1)
+    busiest = int(picks_b64.argmax())
+    clocks = "clocks.sm,clocks.max.sm,power.draw"
+    clocks_before = nvidia_smi_line(clocks)
+    times = {
+        "greedy_ms_b64": cuda_ms(torch, lambda: greedy_select(cand_batch, PICKS, PICKS, RADIUS), 20),
+        "greedy_plain_ms_b64": cuda_ms(torch, lambda: greedy_select_ref(cand_batch, PICKS, PICKS, RADIUS), 3),
+        "greedy_ms_b1": cuda_ms(torch, lambda: greedy_select(cand_one, PICKS, stop_one, RADIUS), 50),
+        "greedy_plain_ms_b1": cuda_ms(torch, lambda: greedy_select_ref(cand_one, PICKS, stop_one, RADIUS), 5),
+        "greedy_ms_b64_dense_200_picks": cuda_ms(torch, lambda: greedy_select(dense_t, PICKS, PICKS, RADIUS), 5),
+        "greedy_ms_b1_dense_200_picks": cuda_ms(torch, lambda: greedy_select(dense_t[0], PICKS, PICKS, RADIUS), 10),
+        "greedy_ms_b1_busiest_frame": cuda_ms(torch, lambda: greedy_select(cand_batch[busiest], PICKS, PICKS, RADIUS), 10),
+    }
+    detect_ms = cuda_ms(torch, lambda: detect_good_features_batch(ja, "fast", PICKS, opts), 10)
+    describe_ms = cuda_ms(torch, lambda: compute_descriptors(ja, fa, bopts), 10)
+    match_ms = cuda_ms(torch, lambda: match_hamming(da.words, da.valid, db.words, db.valid, mopts), 10)
+    torch.cuda.reset_peak_memory_stats()
+    pipe_ms = cuda_ms(torch, pipeline, 10)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pipeline()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+    emit("times", card=smi, sm_clock_max_clock_power_before=clocks_before,
+         sm_clock_max_clock_power_after=nvidia_smi_line(clocks), **times,
+         greedy_picks_per_frame_b64_mean=float(picks_b64.float().mean()),
+         greedy_picks_per_frame_b64_max=int(picks_b64.max()),
+         detect_ms_per_frame=detect_ms / BATCH, describe_ms_per_frame=describe_ms / BATCH,
+         match_ms_per_pair=match_ms / BATCH, pipeline_ms_per_step=pipe_ms,
+         pipeline_frames_per_s=2 * BATCH / (pipe_ms / 1e3),
+         pipeline_wall_frames_per_s=2 * BATCH / (wall_ms / 1e3), peak_memory_mib=peak_mib,
+         library_call="none")
+
+    kernels = [
+        {"name": "greedy_select (batch)", "route": "cuda", "source": SOURCE,
+         "replaces": "feature_detector_tpu/kernels/greedy_pallas.py:145",
+         "launches": batch_launches, "max_abs_err": errs[BATCH],
+         "ms": times["greedy_ms_b64"], "plain_ms": times["greedy_plain_ms_b64"],
+         "bound_ms": greedy_bound_ms(BATCH, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None},
+        {"name": "greedy_select (single frame)", "route": "cuda", "source": SOURCE,
+         "replaces": "feature_detector_tpu/kernels/greedy_pallas.py:35",
+         "launches": single_launches, "max_abs_err": errs[1],
+         "ms": times["greedy_ms_b1"], "plain_ms": times["greedy_plain_ms_b1"],
+         "bound_ms": greedy_bound_ms(1, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None},
+    ]
+    emit("done", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,32 @@
+"""PyTorch/CUDA port of the feature front-end, for NVIDIA Hopper (H100).
+
+A second package beside the JAX reference ``feature_detector_tpu``: the same
+public names, argument order and layouts, written in PyTorch, with each of
+the reference's Pallas TPU kernels on the ported path replaced by a
+hand-written CUDA kernel (``kernels/csrc``).  It imports neither JAX nor the
+JAX package.  Entry points run on ``cuda`` unless handed CPU tensors or
+``device="cpu"``.
+"""
+
+from .core.config import (
+    BriefOptions,
+    DetectorOptions,
+    FastOptions,
+    HarrisOptions,
+    MatcherOptions,
+    ShiTomasiOptions,
+)
+from .core.device import resolve_device
+from .core.types import Descriptors, Features, Lines, Matches
+from .frontend.descriptor import compute_descriptors, compute_descriptors_float, describe_and_match
+from .frontend.detector import detect_good_features, detect_good_features_batch, sparsify_features
+from .kernels.greedy import greedy_select
+from .match.hamming import match_hamming
+
+__all__ = [
+    "BriefOptions", "DetectorOptions", "FastOptions", "HarrisOptions", "MatcherOptions",
+    "ShiTomasiOptions", "resolve_device", "Descriptors", "Features", "Lines", "Matches",
+    "compute_descriptors", "compute_descriptors_float", "describe_and_match",
+    "detect_good_features", "detect_good_features_batch", "sparsify_features",
+    "greedy_select", "match_hamming",
+]

@@ -1,0 +1,168 @@
+"""Steered BRIEF in PyTorch, with the semantics of the JAX package's default
+path (``brief_compute_mxu``, feature_detector_tpu/kernels/brief.py:141).
+
+On the TPU that path is a chain of one-hot and +/-1 matrix products, a form
+chosen because gathers are slow there.  On the GPU a gather is the natural
+form, so this module reads the pixels it needs directly; the bits are the
+same:
+
+- centres are rounded half-to-even; ``in_border`` uses a bound of 19 and
+  centres are clipped to [18, size-19] so that every read stays inside;
+- the steering angle comes from integer moments over the centred 17x17
+  window, quantised to ``steer_bins`` (a single bin when upright); a zero
+  moment makes the descriptor invalid;
+- rotated test offsets are ``np.rint`` of the rotated pattern, precomputed
+  per bin;
+- bit = I(p2) > I(p1), packed so that bit j of word w is test 32w+j; words
+  are int32 tensors holding the uint32 bits; invalid rows are all zero.
+
+``brief_compute_gather`` (the continuous-angle bilinear path) is not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..core.config import BriefOptions
+from .brief_pattern import BRIEF_PATTERN
+
+K_ZERO_FLOAT = 1e-10
+PATCH_HALF = 18  # rotated, rounded offsets stay within +/-18
+MOMENT_HALF = 8  # centred 17x17 intensity-centroid window
+
+
+@functools.lru_cache(maxsize=8)
+def _rotated_offsets(length: int, bins: int) -> np.ndarray:
+    """[bins, length, 4] int64 (p1x, p1y, p2x, p2y): the pattern rotated by
+    2*pi*b/bins and rounded to pixels, as ``_build_sampling_matrix`` builds it."""
+    pat = BRIEF_PATTERN[:length].astype(np.float64)
+    out = np.zeros((bins, length, 4), np.int64)
+    for b in range(bins):
+        theta = 2.0 * np.pi * b / bins
+        c, s = np.cos(theta), np.sin(theta)
+        out[b, :, 0] = np.rint(c * pat[:, 0] - s * pat[:, 1])
+        out[b, :, 1] = np.rint(s * pat[:, 0] + c * pat[:, 1])
+        out[b, :, 2] = np.rint(c * pat[:, 2] - s * pat[:, 3])
+        out[b, :, 3] = np.rint(s * pat[:, 2] + c * pat[:, 3])
+    if np.abs(out).max() > PATCH_HALF:
+        raise ValueError("rotated BRIEF offsets exceed the 37x37 patch")
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _gauss_kernel(sigma: float) -> np.ndarray:
+    radius = int(np.ceil(2.5 * sigma))
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-x * x / (2.0 * sigma * sigma))
+    return (k / k.sum()).astype(np.float32)
+
+
+def _preblur(img_f32: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Separable Gaussian blur with zero ("SAME") padding over the last two
+    dims, rounded to integers.  Written as shifted multiply-adds, so no
+    convolution library (and no TF32) is involved."""
+    if sigma <= 0.0:
+        return img_f32
+    k = [float(v) for v in _gauss_kernel(sigma)]
+    r = (len(k) - 1) // 2
+    rows, cols = img_f32.shape[-2:]
+    p = torch.nn.functional.pad(img_f32, (r, r, 0, 0))
+    x = sum(k[t] * p[..., :, t : t + cols] for t in range(len(k)))
+    p = torch.nn.functional.pad(x, (0, 0, r, r))
+    x = sum(k[t] * p[..., t : t + rows, :] for t in range(len(k)))
+    return torch.round(x)
+
+
+def _pack_words(bits: torch.Tensor, opts: BriefOptions) -> torch.Tensor:
+    """[..., length] {0,1} -> [..., words] int32 with the uint32 bits:
+    bit j of word w = test 32*w+j.  Packed in int64, then wrapped to int32."""
+    lead = bits.shape[:-1]
+    padded = torch.zeros((*lead, opts.words * 32), dtype=torch.int64, device=bits.device)
+    padded[..., : opts.length] = bits.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = (padded.view(*lead, opts.words, 32) << shifts).sum(dim=-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def brief_compute_mxu(
+    image: torch.Tensor,
+    uv: torch.Tensor,
+    valid: torch.Tensor,
+    opts: BriefOptions = BriefOptions(),
+):
+    """Steered BRIEF with integer centres, binned angles and rounded offsets.
+
+    Args:
+      image: [H, W] or [B, H, W] uint8.
+      uv: [N, 2] or [B, N, 2] f32 (x, y).
+      valid: [N] or [B, N] bool slot occupancy.
+
+    Returns (words [.., N, opts.words] int32, desc_valid [.., N] bool).  The
+    name is the JAX package's; here the reads are gathers.
+    """
+    single = image.dim() == 2
+    if single:
+        image, uv, valid = image[None], uv[None], valid[None]
+    img = _preblur(image.to(torch.float32), opts.blur_sigma)
+    bsz, rows, cols = img.shape
+    n = uv.shape[-2]
+    dev = img.device
+    length, bins = opts.length, (1 if opts.upright else opts.steer_bins)
+
+    x = torch.round(uv[..., 0]).to(torch.int32)
+    y = torch.round(uv[..., 1]).to(torch.int32)
+    max_bound = int(max(19, 2 * opts.half_patch_size))
+    in_border = (x >= max_bound) & (x <= cols - max_bound) & (y >= max_bound) & (y <= rows - max_bound)
+    xs = torch.clamp(x, PATCH_HALF, cols - PATCH_HALF - 1).to(torch.int64)
+    ys = torch.clamp(y, PATCH_HALF, rows - PATCH_HALF - 1).to(torch.int64)
+    flat = img.reshape(bsz, rows * cols)
+    base = ys * cols + xs  # [B, N]
+
+    def read(offsets: torch.Tensor) -> torch.Tensor:
+        # offsets [B, N, K] flat pixel offsets from each centre -> values [B, N, K]
+        idx = (base[..., None] + offsets).reshape(bsz, -1)
+        return flat.gather(1, idx).reshape(offsets.shape)
+
+    if opts.upright:
+        ok_moment = torch.ones((bsz, n), dtype=torch.bool, device=dev)
+        bin_idx = torch.zeros((bsz, n), dtype=torch.int64, device=dev)
+    else:
+        d = torch.arange(-MOMENT_HALF, MOMENT_HALF + 1, device=dev)
+        dyg, dxg = torch.meshgrid(d, d, indexing="ij")
+        win = read((dyg * cols + dxg).reshape(1, 1, -1).expand(bsz, n, -1)).to(torch.int32)
+        m10 = (win * dxg.reshape(-1).to(torch.int32)).sum(-1, dtype=torch.int32).to(torch.float32)
+        m01 = (win * dyg.reshape(-1).to(torch.int32)).sum(-1, dtype=torch.int32).to(torch.float32)
+        norm = torch.sqrt(m10 * m10 + m01 * m01)
+        ok_moment = norm >= K_ZERO_FLOAT
+        theta = torch.atan2(m01, m10)
+        scale = float(np.float32(bins / (2.0 * np.pi)))
+        bin_idx = torch.remainder(torch.round(theta * scale).to(torch.int32), bins).to(torch.int64)
+
+    offs = torch.as_tensor(_rotated_offsets(length, bins), device=dev)[bin_idx]  # [B, N, L, 4]
+    v1 = read(offs[..., 1] * cols + offs[..., 0])
+    v2 = read(offs[..., 3] * cols + offs[..., 2])
+    desc_valid = valid & in_border & ok_moment
+    bits = (v2 > v1) & desc_valid[..., None]
+    words = _pack_words(bits, opts)
+    if single:
+        return words[0], desc_valid[0]
+    return words, desc_valid
+
+
+def brief_compute(
+    image: torch.Tensor,
+    uv: torch.Tensor,
+    valid: torch.Tensor,
+    opts: BriefOptions = BriefOptions(),
+):
+    """Steered-BRIEF dispatch on ``opts.method``; only the default "mxu"
+    semantics are ported so far."""
+    if opts.method == "mxu":
+        return brief_compute_mxu(image, uv, valid, opts)
+    if opts.method == "gather":
+        raise NotImplementedError("the gather BRIEF path (method='gather') is not ported yet")
+    raise ValueError(f"unknown BRIEF method: {opts.method!r}")
