@@ -5,12 +5,13 @@
 
 Drives the port's main path, detect (FAST, greedy selection) -> steered
 BRIEF -> cross-checked Hamming matching, on a batch of 64 frame pairs at
-752x480 with 200 features, plus the single-frame incremental re-detect path,
-all on the card.  It builds every CUDA kernel of the path from the sources in
-the checkout, holds each against its plain PyTorch version on the card, shows
-through the launch counters that the paths went through the kernels, checks
-the outputs against the port's CPU run on two frame pairs, and times it all
-with CUDA events.
+752x480 with 200 features, the single-frame incremental re-detect path, and
+the LSD line detector (``detect_good_lines``, budget 100, default options) on
+8 scenes at 752x480, all on the card.  It builds every CUDA kernel of these
+paths from the sources in the checkout (greedy selection and the LSD region
+flood), holds each against its plain PyTorch version on the card, shows
+through the launch counters that each path went through its kernels, checks
+the outputs against the port's CPU run, and times it all with CUDA events.
 
 One JSON line per phase.  Before the last line: one JSON object describing
 every kernel, then the card's name and power limit as nvidia-smi gives them.
@@ -33,6 +34,12 @@ SCENES = 8  # 8 scenes x 8 row shifts = 64 frames
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SOURCE = "feature_detector_tpu_torch/kernels/csrc/greedy.cu"
+LSD_SOURCE = "feature_detector_tpu_torch/kernels/csrc/lsd_flood.cu"
+LSD_BUDGET = 100
+LSD_SWEEPS_ODD = 330  # a sweep count that is no multiple of a chunk size
+FLOOD_OPS_PER_VISIT = 20  # float32 operations per valid pixel, neighbour and sweep (lsd_flood.cu)
+ANGLE_ATOL = 5e-7  # two float32 ulps at pi: the card's atan2 against the CPU's
+ENDPOINT_ATOL = 1e-3  # px, as in tests/test_torch_lsd.py
 
 
 def emit(phase: str, **fields) -> None:
@@ -78,6 +85,143 @@ def greedy_bound_ms(batch: int, rows: int, cols: int, picks: int) -> float:
     nbytes = batch * rows * cols * 4 + batch * 4 + batch * picks * 4 * 4
     ops = batch * rows * cols
     return 1e3 * max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S)
+
+
+def flood_bound(n_pixels: int, n_valid: int, sweeps: int):
+    """Least time for ``sweeps`` flood sweeps: read the angle, validity and
+    the four state planes once and write the state once (37 bytes a pixel),
+    or FLOOD_OPS_PER_VISIT float32 operations per valid pixel, neighbour and
+    sweep.  Returns (ms, "bytes" or "operations")."""
+    t_bytes = 37 * n_pixels / PEAK_BYTES_PER_S
+    t_ops = sweeps * n_valid * 8 * FLOOD_OPS_PER_VISIT / PEAK_F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def equal_norm_maps(torch, dev, rows: int, cols: int, seed: int = 5):
+    """A flood input where norms take three values (ties everywhere) and
+    angles sit near +-pi (wrapping) or drift slowly; 70% valid."""
+    rng = np.random.default_rng(seed)
+    norm = rng.choice(np.float32([25.0, 30.0, 40.0]), (rows, cols)).astype(np.float32)
+    valid = rng.random((rows, cols)) < 0.7
+    angle = np.where(np.arange(cols)[None, :] < cols // 2, np.pi - 0.1, 0.4) + rng.uniform(-0.3, 0.3, (rows, cols))
+    angle = np.where(angle > np.pi, angle - 2 * np.pi, angle)
+    angle = np.where(valid, angle, 0.0).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (norm, angle, valid)]
+
+
+def lsd_phase(torch, dev, scenes, smi: str):
+    """The LSD path on the card: the flood kernel against its plain version,
+    ``detect_good_lines`` on every scene with the launch count, agreement
+    with the CPU run, repeatability and times.  Emits one JSON line and
+    returns the kernel's entry of the kernels line."""
+    from feature_detector_tpu_torch.core.config import LineDetectorOptions
+    from feature_detector_tpu_torch.frontend.line_detector import detect_good_lines, detect_good_lines_with_state
+    from feature_detector_tpu_torch.kernels.lsd import fit_lines, line_level_angle_map, propagate_labels_meanangle
+    from feature_detector_tpu_torch.kernels.lsd_flood import (
+        initial_state,
+        labels_of,
+        propagate_running,
+        running_sweeps,
+        running_sweeps_ref,
+    )
+
+    opts = LineDetectorOptions()
+    tol, sweeps = opts.min_tolerance_angle_residual_in_rad, opts.propagation_steps
+    frames = [torch.from_numpy(sc).to(dev) for sc in scenes]
+    shape = tuple(frames[0].shape)
+    maps = [line_level_angle_map(f, opts) for f in frames]
+
+    # Kernel against plain on the card (launches not counted): every plane
+    # of the state equal bit for bit.
+    max_err = 0.0
+
+    def check_flood(norm, angle, valid, n: int, what: str) -> None:
+        nonlocal max_err
+        state = initial_state(norm, angle, valid)
+        got = running_sweeps(angle, valid, state, n, tol)
+        torch.cuda.synchronize()
+        want = running_sweeps_ref(angle, valid, state, n, tol)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"lsd flood kernel != plain: {what}")
+        err = (labels_of(got[1], valid) - labels_of(want[1], valid)).abs().max()
+        max_err = max(max_err, float(err), *(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want)))
+
+    for i, m in enumerate(maps):
+        check_flood(*m, sweeps, f"scene {i}, {sweeps} sweeps")
+    check_flood(*equal_norm_maps(torch, dev, *maps[0][0].shape), sweeps, f"equal norms, {sweeps} sweeps")
+    check_flood(*maps[0], LSD_SWEEPS_ODD, f"scene 0, {LSD_SWEEPS_ODD} sweeps")
+    check_flood(*maps[0], 0, "scene 0, 0 sweeps")
+
+    # The path itself, counted.
+    propagate_running.launches = 0
+    lines = [detect_good_lines(f, LSD_BUDGET, opts) for f in frames]
+    torch.cuda.synchronize()
+    launches = propagate_running.launches
+    check(launches == len(frames) * sweeps,
+          f"LSD path launched the flood kernel {launches} times, not {len(frames)} x {sweeps}")
+    per_frame = [int(l.count) for l in lines]
+    check(all(bool(torch.isfinite(l.endpoints).all()) and l.endpoints.shape == (opts.max_lines, 4) for l in lines),
+          "LSD endpoints finite, [max_lines, 4]")
+    check(min(per_frame) >= 5, f"too few lines per frame: {per_frame}")
+
+    # One frame against the port's CPU run.
+    t0 = time.perf_counter()
+    card = detect_good_lines_with_state(frames[0], opts)
+    cn, ca, cv = line_level_angle_map(frames[0].cpu(), opts)
+    check(torch.equal(cv, card.valid.cpu()) and torch.equal(cn, card.norm.cpu()), "angle map: valid/norm differ from the CPU")
+    angle_diff = (ca - card.angle.cpu()).abs()
+    check(float(angle_diff.max()) <= ANGLE_ATOL, f"angle map differs from the CPU by {float(angle_diff.max())}")
+    card_maps = [t.cpu() for t in (card.norm, card.angle, card.valid)]
+    cpu_labels = propagate_labels_meanangle(*card_maps, opts)
+    check(torch.equal(cpu_labels, card.labels.cpu()), "CPU plain flood on the card's maps != the card's labels")
+    cpu_ends, cpu_valid, _ = fit_lines(cpu_labels, *card_maps, shape, opts)
+    end_err = float((cpu_ends - card.lines.endpoints.cpu()).abs().max())
+    check(torch.equal(cpu_valid, card.lines.valid.cpu()) and end_err <= ENDPOINT_ATOL,
+          f"CPU fit of the card's labels: lines differ (max endpoint error {end_err})")
+    cpu_seconds = time.perf_counter() - t0
+
+    # Two card runs are identical.
+    again = [detect_good_lines(f, LSD_BUDGET, opts) for f in frames]
+    card2 = detect_good_lines_with_state(frames[0], opts)
+    check(all(torch.equal(a.endpoints, l.endpoints) and torch.equal(a.valid, l.valid) for a, l in zip(again, lines))
+          and torch.equal(card2.labels, card.labels)
+          and all(torch.equal(card2.rects[k], card.rects[k]) for k in card.rects), "two card runs differ")
+
+    # Times.
+    n0, a0, v0 = maps[0]
+    st0 = initial_state(n0, a0, v0)
+    labels0 = card.labels
+    times = {
+        "flood_kernel_ms": cuda_ms(torch, lambda: running_sweeps(a0, v0, st0, sweeps, tol), 20),
+        "flood_plain_ms": cuda_ms(torch, lambda: running_sweeps_ref(a0, v0, st0, sweeps, tol), 2),
+        "angle_map_ms": cuda_ms(torch, lambda: line_level_angle_map(frames[0], opts), 20),
+        "flood_stage_ms": cuda_ms(torch, lambda: propagate_running(n0, a0, v0, sweeps, tol), 20),
+        "fit_stage_ms": cuda_ms(torch, lambda: fit_lines(labels0, n0, a0, v0, shape, opts), 20),
+    }
+    torch.cuda.reset_peak_memory_stats()
+    times["detect_good_lines_ms_per_frame"] = cuda_ms(
+        torch, lambda: [detect_good_lines(f, LSD_BUDGET, opts) for f in frames], 3) / len(frames)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    for f in frames:
+        detect_good_lines(f, LSD_BUDGET, opts)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / len(frames) * 1e3
+    n_valid = int(v0.sum())
+    bound_ms, bound_by = flood_bound(v0.numel(), n_valid, sweeps)
+    emit("lsd", card=smi, rows=shape[0], cols=shape[1], frames=len(frames), budget=LSD_BUDGET, sweeps=sweeps,
+         flood_launches=launches, lines_per_frame=per_frame, valid_pixels_frame0=n_valid,
+         kernel_checks=[f"{len(frames)} scenes x {sweeps} sweeps", f"equal norms x {sweeps}", f"scene 0 x {LSD_SWEEPS_ODD}", "scene 0 x 0"],
+         kernel_max_abs_err=max_err, angle_max_abs_diff_vs_cpu=float(angle_diff.max()),
+         angle_pixels_differing_vs_cpu=int((angle_diff > 0).sum()), labels_equal_cpu_flood=True,
+         endpoint_max_abs_err_vs_cpu_fit=end_err,
+         cpu_check_seconds=cpu_seconds, two_runs_identical=True, **times,
+         detect_good_lines_wall_ms_per_frame=wall_ms, peak_memory_mib=peak_mib,
+         flood_bound_ms=bound_ms, flood_bound_by=bound_by, library_call="none")
+    return {"name": "lsd_flood (propagate_running)", "route": "cuda", "source": LSD_SOURCE,
+            "replaces": "feature_detector_tpu/kernels/lsd_pallas.py:56",
+            "launches": launches, "max_abs_err": max_err,
+            "ms": times["flood_kernel_ms"], "plain_ms": times["flood_plain_ms"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -296,6 +440,8 @@ def main() -> int:
          pipeline_wall_frames_per_s=2 * BATCH / (wall_ms / 1e3), peak_memory_mib=peak_mib,
          library_call="none")
 
+    lsd_kernel = lsd_phase(torch, dev, scenes, smi)
+
     kernels = [
         {"name": "greedy_select (batch)", "route": "cuda", "source": SOURCE,
          "replaces": "feature_detector_tpu/kernels/greedy_pallas.py:145",
@@ -307,6 +453,7 @@ def main() -> int:
          "launches": single_launches, "max_abs_err": errs[1],
          "ms": times["greedy_ms_b1"], "plain_ms": times["greedy_plain_ms_b1"],
          "bound_ms": greedy_bound_ms(1, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None},
+        lsd_kernel,
     ]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

@@ -13,6 +13,7 @@ from .core.config import (
     DetectorOptions,
     FastOptions,
     HarrisOptions,
+    LineDetectorOptions,
     MatcherOptions,
     ShiTomasiOptions,
 )
@@ -20,13 +21,15 @@ from .core.device import resolve_device
 from .core.types import Descriptors, Features, Lines, Matches
 from .frontend.descriptor import compute_descriptors, compute_descriptors_float, describe_and_match
 from .frontend.detector import detect_good_features, detect_good_features_batch, sparsify_features
+from .frontend.line_detector import LineDetectorState, detect_good_lines, detect_good_lines_with_state
 from .kernels.greedy import greedy_select
 from .match.hamming import match_hamming
 
 __all__ = [
-    "BriefOptions", "DetectorOptions", "FastOptions", "HarrisOptions", "MatcherOptions",
-    "ShiTomasiOptions", "resolve_device", "Descriptors", "Features", "Lines", "Matches",
-    "compute_descriptors", "compute_descriptors_float", "describe_and_match",
+    "BriefOptions", "DetectorOptions", "FastOptions", "HarrisOptions", "LineDetectorOptions",
+    "MatcherOptions", "ShiTomasiOptions", "resolve_device", "Descriptors", "Features", "Lines",
+    "Matches", "compute_descriptors", "compute_descriptors_float", "describe_and_match",
     "detect_good_features", "detect_good_features_batch", "sparsify_features",
+    "LineDetectorState", "detect_good_lines", "detect_good_lines_with_state",
     "greedy_select", "match_hamming",
 ]

@@ -105,8 +105,7 @@ class BriefOptions:
     # quantizes the steering angle to ``steer_bins`` (OpenCV ORB practice: 30
     # bins of 12 deg) and rounds feature centers and rotated sample offsets to
     # integer pixels, so every bit is an exact integer comparison.  "gather"
-    # is the continuous-angle bilinear reference path (decision Q1), not yet
-    # ported.
+    # is the continuous-angle bilinear reference path (decision Q1).
     method: str = "mxu"
     steer_bins: int = 30
     # Upright (unsteered) BRIEF: skip the intensity-centroid steering and

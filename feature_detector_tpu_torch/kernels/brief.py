@@ -16,8 +16,11 @@ same:
 - bit = I(p2) > I(p1), packed so that bit j of word w is test 32w+j; words
   are int32 tensors holding the uint32 bits; invalid rows are all zero.
 
-``brief_compute_gather`` (the continuous-angle bilinear path) is not ported
-yet.
+``brief_compute_gather`` is the JAX package's continuous-angle path: float
+centres, a steering angle from bilinear moments over the
+(2 half_patch_size + 1)^2 window, and bilinear reads of the rotated pattern.
+Its float sums run in another order than XLA's, so a bit whose two reads lie
+within float32 rounding of each other may differ from the JAX package's.
 """
 
 from __future__ import annotations
@@ -153,16 +156,120 @@ def brief_compute_mxu(
     return words, desc_valid
 
 
+def bilinear_sample(image_f32: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample at float (row, col) coordinates of an [H, W] image
+    (``ys``, ``xs`` of any shape) or a [B, H, W] stack (``ys``, ``xs`` of
+    shape [B, ...]).  Callers keep the reads inside (the 19-px BRIEF
+    border); indices are clipped anyway."""
+    single = image_f32.dim() == 2
+    img = image_f32[None] if single else image_f32
+    if single:
+        ys, xs = ys[None], xs[None]
+    bsz, rows, cols = img.shape
+    y0 = torch.clamp(torch.floor(ys).to(torch.int64), 0, rows - 2)
+    x0 = torch.clamp(torch.floor(xs).to(torch.int64), 0, cols - 2)
+    wy = ys - y0.to(torch.float32)
+    wx = xs - x0.to(torch.float32)
+    flat = img.reshape(bsz, rows * cols)
+    base = (y0 * cols + x0).reshape(bsz, -1)
+
+    def at(offset: int) -> torch.Tensor:
+        return flat.gather(1, base + offset).reshape(ys.shape)
+
+    # v00 (1-wy)(1-wx) + v01 (1-wy) wx + v10 wy (1-wx) + v11 wy wx, with the
+    # three fused multiply-adds that XLA's CPU compiler forms for it (the
+    # same bits on 200k random reads): a flat patch then reads the same
+    # values as in the JAX package, and so gets the same zero moment.
+    uy, ux = 1 - wy, 1 - wx
+    out = _fma(at(cols + 1) * wy, wx, _fma(at(cols) * wy, ux, _fma(at(0) * uy, ux, at(1) * uy * wx)))
+    return out[0] if single else out
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` with one rounding (float64 holds ``a * b``
+    exactly)."""
+    return (a.to(torch.float64) * b.to(torch.float64) + c.to(torch.float64)).to(torch.float32)
+
+
+def brief_compute_gather(
+    image: torch.Tensor,
+    uv: torch.Tensor,
+    valid: torch.Tensor,
+    opts: BriefOptions = BriefOptions(),
+):
+    """Continuous-angle steered BRIEF with bilinear reads (the JAX package's
+    reference-parity path, ``brief_compute_gather``).
+
+    Args:
+      image: [H, W] or [B, H, W] uint8.
+      uv: [N, 2] or [B, N, 2] f32 (x, y).
+      valid: [N] or [B, N] bool slot occupancy.
+
+    Returns (words [.., N, opts.words] int32, desc_valid [.., N] bool).
+    desc_valid is False for empty slots, out-of-border features and
+    zero-moment patches; their words are all zero.
+    """
+    single = image.dim() == 2
+    if single:
+        image, uv, valid = image[None], uv[None], valid[None]
+    img = _preblur(image.to(torch.float32), opts.blur_sigma)
+    rows, cols = img.shape[-2:]
+    dev = img.device
+    half = opts.half_patch_size
+
+    x, y = uv[..., 0], uv[..., 1]
+    max_bound = max(19.0, 2.0 * half)
+    in_border = (x >= max_bound) & (x <= cols - max_bound) & (y >= max_bound) & (y <= rows - max_bound)
+    # Clamp centres so that the reads of rejected features stay inside.
+    xs = torch.clamp(x, max_bound, cols - max_bound)
+    ys = torch.clamp(y, max_bound, rows - max_bound)
+
+    if opts.upright:
+        ok_moment = torch.ones_like(valid)
+        sin_t = torch.zeros_like(xs)
+        cos_t = torch.ones_like(xs)
+    else:
+        # Intensity-centroid orientation over the (2*half+1)^2 window
+        # (descriptor_brief.cpp:20-35), row-major as np.meshgrid "xy" gives it.
+        d = torch.arange(-half, half + 1, dtype=torch.float32, device=dev)
+        dyg, dxg = (g.reshape(-1) for g in torch.meshgrid(d, d, indexing="ij"))
+        patch = bilinear_sample(img, ys[..., None] + dyg, xs[..., None] + dxg)
+        m10 = (dxg * patch).sum(-1)
+        m01 = (dyg * patch).sum(-1)
+        m = torch.sqrt(m01 * m01 + m10 * m10)
+        ok_moment = m >= np.float32(K_ZERO_FLOAT)
+        m_safe = torch.where(ok_moment, m, 1.0)
+        sin_t = m01 / m_safe
+        cos_t = m10 / m_safe
+
+    # Rotate the test pairs and sample (descriptor_brief.cpp:38-47).
+    pat = torch.as_tensor(BRIEF_PATTERN[: opts.length].astype(np.float32), device=dev)
+    c, s = cos_t[..., None], sin_t[..., None]
+    p1x = c * pat[:, 0] - s * pat[:, 1] + xs[..., None]
+    p1y = s * pat[:, 0] + c * pat[:, 1] + ys[..., None]
+    p2x = c * pat[:, 2] - s * pat[:, 3] + xs[..., None]
+    p2y = s * pat[:, 2] + c * pat[:, 3] + ys[..., None]
+    v1 = bilinear_sample(img, p1y, p1x)
+    v2 = bilinear_sample(img, p2y, p2x)
+
+    desc_valid = valid & in_border & ok_moment
+    words = _pack_words((v1 < v2) & desc_valid[..., None], opts)
+    if single:
+        return words[0], desc_valid[0]
+    return words, desc_valid
+
+
 def brief_compute(
     image: torch.Tensor,
     uv: torch.Tensor,
     valid: torch.Tensor,
     opts: BriefOptions = BriefOptions(),
 ):
-    """Steered-BRIEF dispatch on ``opts.method``; only the default "mxu"
-    semantics are ported so far."""
+    """Steered-BRIEF dispatch on ``opts.method``: "mxu" (the default,
+    integer centres and binned angles) or "gather" (continuous angle,
+    bilinear reads)."""
     if opts.method == "mxu":
         return brief_compute_mxu(image, uv, valid, opts)
     if opts.method == "gather":
-        raise NotImplementedError("the gather BRIEF path (method='gather') is not ported yet")
+        return brief_compute_gather(image, uv, valid, opts)
     raise ValueError(f"unknown BRIEF method: {opts.method!r}")

@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from feature_detector_tpu_torch.core.config import DetectorOptions
+from feature_detector_tpu_torch.core.config import DetectorOptions, LineDetectorOptions
 from feature_detector_tpu_torch.core.types import Features
 from feature_detector_tpu_torch.frontend.descriptor import compute_descriptors
 from feature_detector_tpu_torch.frontend.detector import detect_good_features, detect_good_features_batch
+from feature_detector_tpu_torch.frontend.line_detector import detect_good_lines, detect_good_lines_with_state
+from feature_detector_tpu_torch.kernels import lsd_flood as LF
 from feature_detector_tpu_torch.kernels.detect import greedy_select_ref
 from feature_detector_tpu_torch.kernels.greedy import greedy_select
+from feature_detector_tpu_torch.kernels.lsd import fit_lines, propagate_labels_meanangle
 from feature_detector_tpu_torch.match.hamming import match_hamming
 from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene
 
@@ -80,3 +83,76 @@ def test_slice_on_card_equals_cpu(cuda):
     for g, w in zip(out["cuda"], out["cpu"]):
         assert torch.equal(g, w)
     assert int(out["cpu"][1].sum()) >= 30
+
+
+TOL = LineDetectorOptions().min_tolerance_angle_residual_in_rad
+
+
+def _flood_maps(device, seed=4, h=96, w=150):
+    """Norms from three values (ties everywhere); angles near +-pi on the
+    left half (wrapping) and near 0.4 on the right; 70% valid."""
+    rng = np.random.default_rng(seed)
+    norm = rng.choice(np.float32([25.0, 30.0, 40.0]), (h, w)).astype(np.float32)
+    valid = rng.random((h, w)) < 0.7
+    angle = np.where(np.arange(w)[None, :] < w // 2, np.pi - 0.1, 0.4) + rng.uniform(-0.3, 0.3, (h, w))
+    angle = np.where(angle > np.pi, angle - 2 * np.pi, angle)
+    angle = np.where(valid, angle, 0.0).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (norm, angle, valid)]
+
+
+def test_lsd_flood_kernel_equals_ref(cuda):
+    norm, angle, valid = _flood_maps(cuda)
+    state = LF.initial_state(norm, angle, valid)
+    kept = [s.clone() for s in state]
+    for n in (0, 1, 2, 7, 33):
+        before = LF.propagate_running.launches
+        got = LF.running_sweeps(angle, valid, state, n, TOL)
+        torch.cuda.synchronize()
+        assert LF.propagate_running.launches == before + n
+        want = LF.running_sweeps_ref(angle, valid, state, n, TOL)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    for s, k in zip(state, kept):
+        assert torch.equal(s, k)  # the caller's state is untouched
+    labels = LF.propagate_running(norm, angle, valid, 40, TOL)
+    want = LF.labels_of(LF.running_sweeps_ref(angle, valid, state, 40, TOL)[1], valid)
+    assert labels.dtype == torch.int32 and torch.equal(labels, want)
+    assert len(torch.unique(labels[valid])) < int(valid.sum())
+
+
+def test_lsd_flood_wrapper_rejects_bad_input(cuda):
+    a = torch.zeros((8, 8), device=cuda)
+    v = torch.ones((8, 8), dtype=torch.bool, device=cuda)
+    st = LF.initial_state(a, a, v)
+    with pytest.raises(TypeError):
+        LF.running_sweeps(a.double(), v, st, 1, TOL)
+    with pytest.raises(TypeError):
+        LF.running_sweeps(a, v, (st[0], st[1].long(), st[2], st[3]), 1, TOL)
+    with pytest.raises(ValueError):
+        LF.running_sweeps(a[:4], v, st, 1, TOL)
+    with pytest.raises(ValueError):
+        LF.running_sweeps(a, v.cpu(), st, 1, TOL)
+    with pytest.raises(ValueError):
+        LF.running_sweeps(a.t(), v, st, 1, TOL)
+
+
+def test_lines_on_card_agree_with_cpu(cuda):
+    """As chip_smoke.py: the angle maps within a few ulps; the CPU's plain
+    flood fed the card's maps gives the card's labels; the CPU's fit of
+    those labels gives the card's lines within 1e-3 px; two card runs are
+    identical."""
+    opts = LineDetectorOptions()
+    for seed in (20, 21):
+        frame = torch.from_numpy(scene_uint8(synth_scene(np.random.default_rng(seed), 120, 160, rich_background=True)[0]))
+        card = detect_good_lines_with_state(frame.to(cuda), opts)
+        cpu = detect_good_lines_with_state(frame, opts)
+        assert torch.equal(card.valid.cpu(), cpu.valid) and torch.equal(card.norm.cpu(), cpu.norm)
+        assert float((card.angle.cpu() - cpu.angle).abs().max()) <= 5e-7
+        maps = [t.cpu() for t in (card.norm, card.angle, card.valid)]
+        labels = propagate_labels_meanangle(*maps, opts)
+        assert torch.equal(labels, card.labels.cpu())
+        ends, line_valid, _ = fit_lines(labels, *maps, tuple(frame.shape), opts)
+        assert torch.equal(line_valid, card.lines.valid.cpu()) and int(line_valid.sum()) >= 1
+        assert float((ends - card.lines.endpoints.cpu()).abs().max()) <= 1e-3
+        again = detect_good_lines(frame.to(cuda), 10, opts)
+        assert torch.equal(again.endpoints, card.lines.endpoints) and torch.equal(again.valid, card.lines.valid)
