@@ -11,7 +11,8 @@ the LSD line detector (``detect_good_lines``, budget 100, default options) on
 paths from the sources in the checkout (greedy selection and the LSD region
 flood), holds each against its plain PyTorch version on the card, shows
 through the launch counters that each path went through its kernels, checks
-the outputs against the port's CPU run, and times it all with CUDA events.
+the outputs against the port's CPU run, and times it all with CUDA events
+(each kernel's own device time also with torch.profiler).
 
 One JSON line per phase.  Before the last line: one JSON object describing
 every kernel, then the card's name and power limit as nvidia-smi gives them.
@@ -36,7 +37,8 @@ PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 SOURCE = "feature_detector_tpu_torch/kernels/csrc/greedy.cu"
 LSD_SOURCE = "feature_detector_tpu_torch/kernels/csrc/lsd_flood.cu"
 LSD_BUDGET = 100
-LSD_SWEEPS_ODD = 330  # a sweep count that is no multiple of a chunk size
+LSD_SWEEPS_ODD = 330  # a sweep count that is no multiple of the sweeps per launch
+SEAM_ROWS, SEAM_COLS = 97, 151  # a map size that is no multiple of any tile
 FLOOD_OPS_PER_VISIT = 20  # float32 operations per valid pixel, neighbour and sweep (lsd_flood.cu)
 ANGLE_ATOL = 5e-7  # two float32 ulps at pi: the card's atan2 against the CPU's
 ENDPOINT_ATOL = 1e-3  # px, as in tests/test_torch_lsd.py
@@ -79,6 +81,24 @@ def cuda_ms(torch, fn, iters: int, warmup_s: float = 0.25) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, kernels, iters: int) -> float:
+    """Device time per call, in ms, of the CUDA kernels whose names contain
+    one of ``kernels``, summed from a torch.profiler trace of ``iters``
+    calls.  A call's CUDA-event time also holds the host's gaps when the
+    host enqueues more slowly than the card runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages() if any(k in e.key for k in kernels))
+    check(total_us > 0, f"the profiler saw no device time of {kernels}")
+    return total_us / iters / 1e3
+
+
 def greedy_bound_ms(batch: int, rows: int, cols: int, picks: int) -> float:
     """Least time for greedy selection: read each map once, write each
     output slot once (bytes), or one comparison per map element (f32 ops)."""
@@ -118,6 +138,8 @@ def lsd_phase(torch, dev, scenes, smi: str):
     from feature_detector_tpu_torch.frontend.line_detector import detect_good_lines, detect_good_lines_with_state
     from feature_detector_tpu_torch.kernels.lsd import fit_lines, line_level_angle_map, propagate_labels_meanangle
     from feature_detector_tpu_torch.kernels.lsd_flood import (
+        FLOOD_TILE,
+        SWEEPS_PER_LAUNCH,
         initial_state,
         labels_of,
         propagate_running,
@@ -134,6 +156,8 @@ def lsd_phase(torch, dev, scenes, smi: str):
     # Kernel against plain on the card (launches not counted): every plane
     # of the state equal bit for bit.
     max_err = 0.0
+    per_launch = SWEEPS_PER_LAUNCH
+    checks = []
 
     def check_flood(norm, angle, valid, n: int, what: str) -> None:
         nonlocal max_err
@@ -144,20 +168,25 @@ def lsd_phase(torch, dev, scenes, smi: str):
         check(all(torch.equal(g, w) for g, w in zip(got, want)), f"lsd flood kernel != plain: {what}")
         err = (labels_of(got[1], valid) - labels_of(want[1], valid)).abs().max()
         max_err = max(max_err, float(err), *(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want)))
+        checks.append(what)
 
     for i, m in enumerate(maps):
-        check_flood(*m, sweeps, f"scene {i}, {sweeps} sweeps")
-    check_flood(*equal_norm_maps(torch, dev, *maps[0][0].shape), sweeps, f"equal norms, {sweeps} sweeps")
-    check_flood(*maps[0], LSD_SWEEPS_ODD, f"scene 0, {LSD_SWEEPS_ODD} sweeps")
-    check_flood(*maps[0], 0, "scene 0, 0 sweeps")
+        check_flood(*m, sweeps, f"scene {i} x {sweeps}")
+    check_flood(*equal_norm_maps(torch, dev, *maps[0][0].shape), sweeps, f"equal norms x {sweeps}")
+    # The seams of the tiled design: sweep counts around the sweeps per
+    # launch, a grid that is no multiple of a tile.
+    for n in (0, 1, per_launch - 1, per_launch, per_launch + 1, LSD_SWEEPS_ODD):
+        check_flood(*maps[0], n, f"scene 0 x {n}")
+    check_flood(*equal_norm_maps(torch, dev, SEAM_ROWS, SEAM_COLS), 33, f"equal norms {SEAM_ROWS}x{SEAM_COLS} x 33")
 
     # The path itself, counted.
     propagate_running.launches = 0
     lines = [detect_good_lines(f, LSD_BUDGET, opts) for f in frames]
     torch.cuda.synchronize()
     launches = propagate_running.launches
-    check(launches == len(frames) * sweeps,
-          f"LSD path launched the flood kernel {launches} times, not {len(frames)} x {sweeps}")
+    per_call = -(-sweeps // per_launch)
+    check(launches == len(frames) * per_call,
+          f"LSD path launched the flood kernel {launches} times, not {len(frames)} x {per_call}")
     per_frame = [int(l.count) for l in lines]
     check(all(bool(torch.isfinite(l.endpoints).all()) and l.endpoints.shape == (opts.max_lines, 4) for l in lines),
           "LSD endpoints finite, [max_lines, 4]")
@@ -190,8 +219,13 @@ def lsd_phase(torch, dev, scenes, smi: str):
     n0, a0, v0 = maps[0]
     st0 = initial_state(n0, a0, v0)
     labels0 = card.labels
+    none_valid = torch.zeros_like(v0)
+    st_none = initial_state(n0, a0, none_valid)
     times = {
         "flood_kernel_ms": cuda_ms(torch, lambda: running_sweeps(a0, v0, st0, sweeps, tol), 20),
+        "flood_kernel_ms_one_launch": cuda_ms(torch, lambda: running_sweeps(a0, v0, st0, per_launch, tol), 50),
+        "flood_kernel_ms_no_valid_pixel": cuda_ms(torch, lambda: running_sweeps(a0, none_valid, st_none, sweeps, tol), 20),
+        "flood_device_ms": device_ms(torch, lambda: running_sweeps(a0, v0, st0, sweeps, tol), ("flood_tiles",), 10),
         "flood_plain_ms": cuda_ms(torch, lambda: running_sweeps_ref(a0, v0, st0, sweeps, tol), 2),
         "angle_map_ms": cuda_ms(torch, lambda: line_level_angle_map(frames[0], opts), 20),
         "flood_stage_ms": cuda_ms(torch, lambda: propagate_running(n0, a0, v0, sweeps, tol), 20),
@@ -208,9 +242,13 @@ def lsd_phase(torch, dev, scenes, smi: str):
     wall_ms = (time.perf_counter() - t0) / len(frames) * 1e3
     n_valid = int(v0.sum())
     bound_ms, bound_by = flood_bound(v0.numel(), n_valid, sweeps)
+    t = FLOOD_TILE
+    pad = torch.nn.functional.pad(v0.to(torch.int32), (0, -v0.shape[1] % t, 0, -v0.shape[0] % t))
+    tile_live = pad.reshape(pad.shape[0] // t, t, pad.shape[1] // t, t).sum((1, 3)) > 0
     emit("lsd", card=smi, rows=shape[0], cols=shape[1], frames=len(frames), budget=LSD_BUDGET, sweeps=sweeps,
-         flood_launches=launches, lines_per_frame=per_frame, valid_pixels_frame0=n_valid,
-         kernel_checks=[f"{len(frames)} scenes x {sweeps} sweeps", f"equal norms x {sweeps}", f"scene 0 x {LSD_SWEEPS_ODD}", "scene 0 x 0"],
+         sweeps_per_launch=per_launch, flood_launches=launches, lines_per_frame=per_frame, valid_pixels_frame0=n_valid,
+         flood_tiles_frame0=tile_live.numel(), flood_tiles_live_frame0=int(tile_live.sum()),
+         flood_tiles_live_share_frame0=float(tile_live.float().mean()), kernel_checks=checks,
          kernel_max_abs_err=max_err, angle_max_abs_diff_vs_cpu=float(angle_diff.max()),
          angle_pixels_differing_vs_cpu=int((angle_diff > 0).sum()), labels_equal_cpu_flood=True,
          endpoint_max_abs_err_vs_cpu_fit=end_err,
@@ -220,7 +258,7 @@ def lsd_phase(torch, dev, scenes, smi: str):
     return {"name": "lsd_flood (propagate_running)", "route": "cuda", "source": LSD_SOURCE,
             "replaces": "feature_detector_tpu/kernels/lsd_pallas.py:56",
             "launches": launches, "max_abs_err": max_err,
-            "ms": times["flood_kernel_ms"], "plain_ms": times["flood_plain_ms"],
+            "ms": times["flood_kernel_ms"], "device_ms": times["flood_device_ms"], "plain_ms": times["flood_plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
@@ -262,9 +300,9 @@ def main() -> int:
         greedy_select_ref,
         make_suppression_mask,
     )
-    from feature_detector_tpu_torch.kernels.greedy import greedy_select
+    from feature_detector_tpu_torch.kernels.greedy import GREEDY_TILE, greedy_select
     from feature_detector_tpu_torch.match.hamming import match_hamming
-    from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene
+    from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene, tile_edge_ties
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -308,6 +346,28 @@ def main() -> int:
         emit("kernel_check", kernel="greedy_select", batch=b, shape=list(cand.shape), picks=PICKS,
              radius=RADIUS, exact=True, max_abs_err=errs[b], picks_taken_mean=float(picks.mean()))
 
+    # The seams of the tiled design: a map that is no multiple of a tile,
+    # equal maxima on both sides of tile edges and far apart, -0 and
+    # negative entries, radii 0, 1, 20 and wider than a tile.
+    seam = tile_edge_ties(rng, (3, SEAM_ROWS, SEAM_COLS), GREEDY_TILE, signed_frame=1)
+    seam_t = torch.from_numpy(seam).to(dev)
+    for r in (RADIUS, 0, 1, 25):
+        got = greedy_select(seam_t, 40, 40, r)
+        torch.cuda.synchronize()
+        want = greedy_select_ref(seam_t, 40, 40, r)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"greedy kernel != plain on the seam map, r={r}")
+    emit("kernel_check", kernel="greedy_select", batch=3, shape=list(seam.shape), picks=40, radii=[RADIUS, 0, 1, 25],
+         case="tile-edge ties, negatives and -0", exact=True, picks_taken=want[2].sum(1).tolist())
+    # A 1080x1920 frame: the pick chain's state no longer fits in shared
+    # memory and lives in the global workspace.
+    large = torch.from_numpy(np.where(rng.random((1080, 1920)) < 0.01, rng.random((1080, 1920)), 0).astype(np.float32)).to(dev)
+    got = greedy_select(large, 30, 30, RADIUS)
+    torch.cuda.synchronize()
+    want = greedy_select_ref(large, 30, 30, RADIUS)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "greedy kernel != plain on a 1080x1920 frame")
+    emit("kernel_check", kernel="greedy_select", batch=1, shape=list(large.shape), picks=30, radius=RADIUS,
+         case="state in the global workspace", exact=True, picks_taken=int(want[2].sum()))
+
     # 4. Main path: 64 frame pairs from 8 seeded scenes.
     t = time.perf_counter()
     scenes = [scene_uint8(synth_scene(np.random.default_rng(s), ROWS, COLS, rich_background=True)[0])
@@ -331,7 +391,7 @@ def main() -> int:
     fa, fb, da, db, m = pipeline()
     torch.cuda.synchronize()
     batch_launches = greedy_select.launches
-    check(batch_launches == 2, f"main path launched the greedy kernel {batch_launches} times, not 2")
+    check(batch_launches == 4, f"main path launched the greedy kernels {batch_launches} times, not 2 x 2")
     check(fa.uv.shape == (BATCH, PICKS, 2) and da.words.shape == (BATCH, PICKS, 8), "output shapes")
     check(bool(torch.isfinite(fa.uv).all() and torch.isfinite(fa.response).all()), "finite features")
     kpts = fa.count.float().mean().item()
@@ -375,7 +435,7 @@ def main() -> int:
     inc = detect_good_features(frame1, existing, "fast", PICKS, opts)
     torch.cuda.synchronize()
     single_launches = greedy_select.launches
-    check(single_launches == 1, f"incremental path launched the greedy kernel {single_launches} times, not 1")
+    check(single_launches == 2, f"incremental path launched the greedy kernels {single_launches} times, not 2")
     check(bool(torch.equal(inc.uv[:n_half], existing.uv[:n_half]) and inc.valid[:n_half].all()), "existing prefix kept")
     n_total = int(inc.count)
     new_uv = inc.uv[n_half:n_total].cpu().numpy()
@@ -404,9 +464,10 @@ def main() -> int:
     errs[1] = max(errs[1], max_abs_err(torch, got_1, want_1))
 
     # 6. Times (CUDA events, after a warm-up).  One block runs each frame's
-    # pick chain, so the batch kernel lasts as long as its longest chain: the
-    # frame with the most picks is also timed alone.
+    # pick chain, so the batch lasts as long as its longest chain: the frame
+    # with the most picks is also timed alone.
     picks_b64 = got_b[2].sum(1)
+    positives = (cand_batch > 0).sum((1, 2)).float()
     busiest = int(picks_b64.argmax())
     clocks = "clocks.sm,clocks.max.sm,power.draw"
     clocks_before = nvidia_smi_line(clocks)
@@ -419,6 +480,9 @@ def main() -> int:
         "greedy_ms_b1_dense_200_picks": cuda_ms(torch, lambda: greedy_select(dense_t[0], PICKS, PICKS, RADIUS), 10),
         "greedy_ms_b1_busiest_frame": cuda_ms(torch, lambda: greedy_select(cand_batch[busiest], PICKS, PICKS, RADIUS), 10),
     }
+    greedy_kernels = ("tile_keys_kernel", "pick_kernel")
+    times["greedy_device_ms_b64"] = device_ms(torch, lambda: greedy_select(cand_batch, PICKS, PICKS, RADIUS), greedy_kernels, 10)
+    times["greedy_device_ms_b1"] = device_ms(torch, lambda: greedy_select(cand_one, PICKS, stop_one, RADIUS), greedy_kernels, 20)
     detect_ms = cuda_ms(torch, lambda: detect_good_features_batch(ja, "fast", PICKS, opts), 10)
     describe_ms = cuda_ms(torch, lambda: compute_descriptors(ja, fa, bopts), 10)
     match_ms = cuda_ms(torch, lambda: match_hamming(da.words, da.valid, db.words, db.valid, mopts), 10)
@@ -434,6 +498,8 @@ def main() -> int:
          sm_clock_max_clock_power_after=nvidia_smi_line(clocks), **times,
          greedy_picks_per_frame_b64_mean=float(picks_b64.float().mean()),
          greedy_picks_per_frame_b64_max=int(picks_b64.max()),
+         positive_candidates_per_frame_b64_mean=float(positives.mean()),
+         positive_candidates_per_frame_b64_max=int(positives.max()),
          detect_ms_per_frame=detect_ms / BATCH, describe_ms_per_frame=describe_ms / BATCH,
          match_ms_per_pair=match_ms / BATCH, pipeline_ms_per_step=pipe_ms,
          pipeline_frames_per_s=2 * BATCH / (pipe_ms / 1e3),
@@ -446,12 +512,12 @@ def main() -> int:
         {"name": "greedy_select (batch)", "route": "cuda", "source": SOURCE,
          "replaces": "feature_detector_tpu/kernels/greedy_pallas.py:145",
          "launches": batch_launches, "max_abs_err": errs[BATCH],
-         "ms": times["greedy_ms_b64"], "plain_ms": times["greedy_plain_ms_b64"],
+         "ms": times["greedy_ms_b64"], "device_ms": times["greedy_device_ms_b64"], "plain_ms": times["greedy_plain_ms_b64"],
          "bound_ms": greedy_bound_ms(BATCH, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None},
         {"name": "greedy_select (single frame)", "route": "cuda", "source": SOURCE,
          "replaces": "feature_detector_tpu/kernels/greedy_pallas.py:35",
          "launches": single_launches, "max_abs_err": errs[1],
-         "ms": times["greedy_ms_b1"], "plain_ms": times["greedy_plain_ms_b1"],
+         "ms": times["greedy_ms_b1"], "device_ms": times["greedy_device_ms_b1"], "plain_ms": times["greedy_plain_ms_b1"],
          "bound_ms": greedy_bound_ms(1, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None},
         lsd_kernel,
     ]

@@ -1,10 +1,12 @@
 """Greedy response-ordered selection: the hand CUDA kernel and its wrapper.
 
-Counterpart of ``feature_detector_tpu/kernels/greedy_pallas.py``: one kernel,
+Counterpart of ``feature_detector_tpu/kernels/greedy_pallas.py``: one source,
 ``csrc/greedy.cu``, replaces both Pallas kernels there (``_kernel_batched``
-for a frame stack and ``_kernel`` for one frame, launched with B = 1).
+for a frame stack and ``_kernel`` for one frame, launched with B = 1).  A
+call is two launches: a pass over every map that keys each 16x16 tile, then
+one pick chain per frame.
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version
+A CUDA tensor launches the kernels; a CPU tensor takes the plain version
 ``detect.greedy_select_ref``.  Nothing else: there is no fallback from one to
 the other.  ``greedy_select.launches`` counts kernel launches.
 """
@@ -18,6 +20,8 @@ import torch
 from . import _build
 from .detect import greedy_select_ref
 
+GREEDY_TILE = 16  # tile side of csrc/greedy.cu
+
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("greedy")
@@ -26,6 +30,8 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p]
+    lib.fd_greedy_workspace_bytes.restype = ctypes.c_longlong
+    lib.fd_greedy_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -43,6 +49,8 @@ def _launch(cand: torch.Tensor, max_picks: int, n_stop, radius: int):
     b, rows, cols = maps.shape
     if b == 0 or rows == 0 or cols == 0:
         raise ValueError(f"greedy_select: empty candidate map {tuple(cand.shape)}")
+    if rows * cols >= 2**32 - 1:
+        raise ValueError(f"greedy_select: a frame of {rows}x{cols} pixels has no 32-bit flat index")
     dev = cand.device
     if isinstance(n_stop, torch.Tensor):
         if n_stop.device != dev:
@@ -52,16 +60,16 @@ def _launch(cand: torch.Tensor, max_picks: int, n_stop, radius: int):
         stop = n_stop.to(torch.int32).reshape(-1).expand(b).contiguous()
     else:
         stop = torch.full((b,), int(n_stop), dtype=torch.int32, device=dev)
-    work = torch.empty_like(maps)
     out = torch.zeros((b, max_picks, 4), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
+        ws = torch.empty((b * lib.fd_greedy_workspace_bytes(rows, cols) // 8,), dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fd_greedy_select(maps.data_ptr(), stop.data_ptr(), work.data_ptr(),
-                                   out.data_ptr(), b, rows, cols, max_picks, radius, stream)
+        err = lib.fd_greedy_select(maps.data_ptr(), stop.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                                   b, rows, cols, max_picks, radius, stream)
     if err != 0:
         raise RuntimeError(f"greedy_select kernel launch failed: cudaError {err}")
-    greedy_select.launches += 1
+    greedy_select.launches += 2
     uv, resp, valid = out[..., 0:2], out[..., 2], out[..., 3] > 0.5
     if single:
         return uv[0], resp[0], valid[0]
@@ -75,6 +83,10 @@ def greedy_select(cand: torch.Tensor, max_picks: int, n_stop, radius: int):
     frame).  Returns (uv [.., max_picks, 2] f32 (x, y), resp [.., max_picks]
     f32, valid [.., max_picks] bool), equal bit for bit to
     ``greedy_select_ref`` and to the JAX package's ``greedy_select_lax``.
+
+    Candidate maps must be finite (responses are finite by construction);
+    entries <= 0 are never picked.  On the card a call is two kernel
+    launches and a frame must hold fewer than 2^32 - 1 pixels.
     """
     if cand.device.type == "cuda":
         return _launch(cand, max_picks, n_stop, radius)

@@ -19,9 +19,11 @@ best one whose gate angle is within ``tol`` of its own angle (wrapped to
 angle moves by d / m towards the pixel's angle and m = cnt + 1.  Sweeps are
 Jacobi: each reads only the previous sweep's state.
 
-A CUDA tensor launches the kernel, one launch per sweep; a CPU tensor takes
-the plain version ``running_sweeps_ref``.  There is no fallback from one to
-the other.  ``propagate_running.launches`` counts kernel launches.
+A CUDA tensor launches the kernel, one launch per ``SWEEPS_PER_LAUNCH``
+sweeps over 32x32 tiles (``FLOOD_TILE``) that hold a halo as wide as their
+sweep count; tiles without a valid pixel are skipped.  A CPU tensor takes the
+plain version ``running_sweeps_ref``.  There is no fallback from one to the
+other.  ``propagate_running.launches`` counts kernel launches.
 
 Float32 throughout, as in the JAX package: pi, 2 pi and ``tol`` are rounded
 to float32 before any comparison, so a difference of exactly float32(pi) is
@@ -40,6 +42,8 @@ import torch.nn.functional as F
 
 from . import _build
 
+SWEEPS_PER_LAUNCH = 16  # K of csrc/lsd_flood.cu
+FLOOD_TILE = 32  # tile side of csrc/lsd_flood.cu
 SHIFTS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))
 PI = float(np.float32(math.pi))
 TWO_PI = float(np.float32(2.0 * math.pi))
@@ -120,8 +124,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("lsd_flood")
     fn = lib.fd_lsd_flood
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                             ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
     return lib
 
 
@@ -149,8 +152,9 @@ def _launch_sweeps(angle: torch.Tensor, valid: torch.Tensor, state: State, n_swe
     if n_sweeps == 0:
         return state
     rows, cols = angle.shape
+    n_launches = -(-n_sweeps // SWEEPS_PER_LAUNCH)
     buf_a = tuple(torch.empty_like(s) for s in state)
-    buf_b = tuple(torch.empty_like(s) for s in state) if n_sweeps > 1 else buf_a
+    buf_b = tuple(torch.empty_like(s) for s in state) if n_launches > 1 else buf_a
     lib = _library()
     with torch.cuda.device(angle.device):
         stream = torch.cuda.current_stream(angle.device).cuda_stream
@@ -158,15 +162,15 @@ def _launch_sweeps(angle: torch.Tensor, valid: torch.Tensor, state: State, n_swe
                                rows, cols, n_sweeps, f32(tol), stream)
     if err != 0:
         raise RuntimeError(f"lsd flood kernel launch failed: cudaError {err}")
-    propagate_running.launches += n_sweeps
-    # Sweep s writes buffer A when s is even, B when odd.
-    return buf_a if n_sweeps % 2 == 1 else buf_b
+    propagate_running.launches += n_launches
+    # Launch j writes buffer A when j is even, B when odd.
+    return buf_a if n_launches % 2 == 1 else buf_b
 
 
 def running_sweeps(angle: torch.Tensor, valid: torch.Tensor, state: State, n_sweeps: int, tol: float) -> State:
     """``n_sweeps`` path-running-mean sweeps of ``state``; the kernel for CUDA
-    tensors (one launch per sweep), the plain version for CPU tensors.  The
-    caller's state is not modified."""
+    tensors (ceil(n_sweeps / SWEEPS_PER_LAUNCH) launches), the plain version
+    for CPU tensors.  The caller's state is not modified."""
     if angle.device.type == "cuda":
         return _launch_sweeps(angle, valid, state, n_sweeps, tol)
     if angle.device.type == "cpu":

@@ -4,7 +4,8 @@ The port's own copy of ``synth_scene`` and its helpers from
 ``feature_detector_tpu/models/synth_data.py``, so that frames can be made
 without the JAX package.  Every generator returns ``(image [H, W] float32 in
 [0, 1], corners [N, 2] float32 (u, v))``; ``scene_uint8`` scales an image to
-uint8 as the tests of the JAX package do.
+uint8 as the tests of the JAX package do.  ``tile_edge_ties`` makes
+candidate maps for the seams of a tiled greedy-selection kernel.
 """
 
 from __future__ import annotations
@@ -152,3 +153,22 @@ def synth_scene(rng: np.random.Generator, h: int = 120, w: int = 160,
 def scene_uint8(img: np.ndarray) -> np.ndarray:
     """[0, 1] float image -> uint8, clipped."""
     return np.clip(img * 255, 0, 255).astype(np.uint8)
+
+
+def tile_edge_ties(rng: np.random.Generator, shape, tile: int, signed_frame: int | None = None) -> np.ndarray:
+    """Candidate maps ``[B, H, W]`` float32 for the seams of a greedy
+    selection that keys ``tile``-px tiles (H >= 4 tile, W >= 8 tile): 5% of
+    the pixels hold 0.5, and ten pixels of every frame hold the maximum 3.0,
+    on both sides of tile edges, in three corners and far apart, so that
+    row-major order decides among them.  Frame ``signed_frame``, if given,
+    has its first 30 rows negated and the next 10 set to -0."""
+    _, h, w = shape
+    t = tile
+    m = np.where(rng.random(shape) < 0.05, 0.5, 0.0).astype(np.float32)
+    for y, x in ((t - 1, t - 1), (t - 1, t), (t, t - 1), (t, t), (40, 3 * t - 1), (40, 3 * t),
+                 (0, w - 1), (h - 1, 0), (h - 1, w - 1), (4 * t - 1, 8 * t - 1)):
+        m[:, y, x] = 3.0
+    if signed_frame is not None:
+        m[signed_frame, :30] = -m[signed_frame, :30]
+        m[signed_frame, 30:40] = -0.0
+    return m

@@ -19,10 +19,10 @@ from feature_detector_tpu_torch.frontend.detector import detect_good_features, d
 from feature_detector_tpu_torch.frontend.line_detector import detect_good_lines, detect_good_lines_with_state
 from feature_detector_tpu_torch.kernels import lsd_flood as LF
 from feature_detector_tpu_torch.kernels.detect import greedy_select_ref
-from feature_detector_tpu_torch.kernels.greedy import greedy_select
+from feature_detector_tpu_torch.kernels.greedy import GREEDY_TILE, greedy_select
 from feature_detector_tpu_torch.kernels.lsd import fit_lines, propagate_labels_meanangle
 from feature_detector_tpu_torch.match.hamming import match_hamming
-from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene
+from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene, tile_edge_ties
 
 pytestmark = pytest.mark.gpu
 
@@ -45,7 +45,7 @@ def test_greedy_kernel_equals_ref(cuda):
     before = greedy_select.launches
     got = greedy_select(cand, 40, n_stop, 6)
     torch.cuda.synchronize()
-    assert greedy_select.launches == before + 1
+    assert greedy_select.launches == before + 2  # the key pass and the pick chains
     want = greedy_select_ref(cand, 40, n_stop, 6)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -53,6 +53,51 @@ def test_greedy_kernel_equals_ref(cuda):
     for g, w in zip(one, want):
         assert torch.equal(g, w[0])
     assert torch.equal(cand.cpu(), torch.from_numpy(maps))  # the caller's map is untouched
+
+
+def _tile_edge_ties(rng, signed_frame=None):
+    return tile_edge_ties(rng, (3, 97, 151), GREEDY_TILE, signed_frame)
+
+
+def _signed(rng, shape=(2, 97, 151)):
+    """Negative values and -0 beside positive ones."""
+    m = rng.choice(np.float32([-2.0, -0.0, 0.0, 0.25, 1.0]), shape).astype(np.float32)
+    m[:, :50] = np.where(m[:, :50] > 0, -m[:, :50], m[:, :50])
+    return m
+
+
+# name: (maps [B, H, W], max_picks, n_stop per frame, radius)
+GREEDY_SEAMS = {
+    "tile_edge_ties_r20": lambda rng: (_tile_edge_ties(rng, signed_frame=1), 30, [30, 30, 30], 20),
+    "radius_0": lambda rng: (_tile_edge_ties(rng), 40, [40, 40, 40], 0),
+    "radius_1": lambda rng: (_tile_edge_ties(rng), 40, [40, 40, 40], 1),
+    "radius_25_wider_than_a_tile": lambda rng: (_tile_edge_ties(rng), 40, [40, 40, 40], 25),
+    "signed_and_negative_zero": lambda rng: (_signed(rng), 60, [60, 60], 3),
+    "exhausted_and_n_stop_0": lambda rng: (_tile_edge_ties(rng), 40, [40, 0, 3], 20),
+    # 1080x1920 keeps the pick chain's state in the global workspace, not in shared memory.
+    "large_frame_global_workspace": lambda rng: (
+        np.where(rng.random((1, 1080, 1920)) < 0.01, rng.random((1, 1080, 1920)), 0).astype(np.float32),
+        30, [30], 20),
+    "b64_main_path_size": lambda rng: (
+        np.where(rng.random((64, 480, 752)) < 0.02, np.round(rng.random((64, 480, 752)) * 8) / 8, 0).astype(np.float32),
+        200, [200] * 64, 20),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GREEDY_SEAMS))
+def test_greedy_kernel_seams_equal_ref(cuda, case):
+    maps, picks, n_stop, radius = GREEDY_SEAMS[case](np.random.default_rng(11))
+    cand = torch.from_numpy(maps).to(cuda)
+    stop = torch.tensor(n_stop, dtype=torch.int32, device=cuda)
+    before = greedy_select.launches
+    got = greedy_select(cand, picks, stop, radius)
+    one = greedy_select(cand[0], picks, n_stop[0], radius)
+    torch.cuda.synchronize()
+    assert greedy_select.launches == before + 4
+    want = greedy_select_ref(cand, picks, stop, radius)
+    for g, w, o in zip(got, want, one):
+        assert torch.equal(g, w) and torch.equal(o, w[0])
+    assert bool(want[2].any())
 
 
 def test_greedy_wrapper_rejects_bad_input(cuda):
@@ -88,12 +133,15 @@ def test_slice_on_card_equals_cpu(cuda):
 TOL = LineDetectorOptions().min_tolerance_angle_residual_in_rad
 
 
-def _flood_maps(device, seed=4, h=96, w=150):
+def _flood_maps(device, seed=4, h=96, w=150, share=0.7, live=None):
     """Norms from three values (ties everywhere); angles near +-pi on the
-    left half (wrapping) and near 0.4 on the right; 70% valid."""
+    left half (wrapping) and near 0.4 on the right; ``share`` of the pixels
+    valid, only inside the ``live`` mask when one is given."""
     rng = np.random.default_rng(seed)
     norm = rng.choice(np.float32([25.0, 30.0, 40.0]), (h, w)).astype(np.float32)
-    valid = rng.random((h, w)) < 0.7
+    valid = rng.random((h, w)) < share
+    if live is not None:
+        valid &= live
     angle = np.where(np.arange(w)[None, :] < w // 2, np.pi - 0.1, 0.4) + rng.uniform(-0.3, 0.3, (h, w))
     angle = np.where(angle > np.pi, angle - 2 * np.pi, angle)
     angle = np.where(valid, angle, 0.0).astype(np.float32)
@@ -108,7 +156,7 @@ def test_lsd_flood_kernel_equals_ref(cuda):
         before = LF.propagate_running.launches
         got = LF.running_sweeps(angle, valid, state, n, TOL)
         torch.cuda.synchronize()
-        assert LF.propagate_running.launches == before + n
+        assert LF.propagate_running.launches == before + -(-n // LF.SWEEPS_PER_LAUNCH)
         want = LF.running_sweeps_ref(angle, valid, state, n, TOL)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
@@ -118,6 +166,38 @@ def test_lsd_flood_kernel_equals_ref(cuda):
     want = LF.labels_of(LF.running_sweeps_ref(angle, valid, state, 40, TOL)[1], valid)
     assert labels.dtype == torch.int32 and torch.equal(labels, want)
     assert len(torch.unique(labels[valid])) < int(valid.sum())
+
+
+def _few_live_tiles(h=130, w=200):
+    """Valid pixels in three 32-px tiles (one across a tile edge), every other
+    tile all invalid."""
+    live = np.zeros((h, w), bool)
+    live[32:64, 64:96] = live[96:130, 160:200] = live[10:50, 140:150] = True
+    return live
+
+
+FLOOD_GRIDS = {
+    "few_live_tiles": lambda dev: _flood_maps(dev, seed=6, h=130, w=200, live=_few_live_tiles()),
+    "fully_valid": lambda dev: _flood_maps(dev, seed=7, h=40, w=50, share=1.0),
+    "ragged_97x151": lambda dev: _flood_maps(dev, seed=8, h=97, w=151),
+}
+
+
+@pytest.mark.parametrize("grid", sorted(FLOOD_GRIDS))
+def test_lsd_flood_tiles_equal_ref(cuda, grid):
+    """Every plane bit for bit at sweep counts around the sweeps per launch
+    k, with ceil(n / k) launches."""
+    norm, angle, valid = FLOOD_GRIDS[grid](cuda)
+    state = LF.initial_state(norm, angle, valid)
+    k = LF.SWEEPS_PER_LAUNCH
+    for n in (0, 1, k - 1, k, k + 1, 33, 330):
+        before = LF.propagate_running.launches
+        got = LF.running_sweeps(angle, valid, state, n, TOL)
+        torch.cuda.synchronize()
+        assert LF.propagate_running.launches == before + -(-n // k)
+        want = LF.running_sweeps_ref(angle, valid, state, n, TOL)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (grid, n)
 
 
 def test_lsd_flood_wrapper_rejects_bad_input(cuda):

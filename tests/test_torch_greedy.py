@@ -40,6 +40,22 @@ def _budget():
     return m
 
 
+def _signed(rng):
+    """Negative entries and -0 beside positive ones: only values > 0 are taken."""
+    m = rng.choice(np.float32([-3.0, -0.5, -0.0, 0.0, 0.25, 1.0]), (30, 50)).astype(np.float32)
+    m[:10] = -np.abs(m[:10])  # rows of only negatives and -0
+    return m
+
+
+def _far_ties():
+    """Equal maxima far apart in different rows and columns: row-major order
+    decides (a later row at a smaller column loses to an earlier row)."""
+    m = np.zeros((40, 70), np.float32)
+    m[30, 2] = m[5, 65] = m[5, 40] = m[17, 0] = m[39, 69] = 2.0
+    m[20, 30] = 1.0
+    return m
+
+
 CASES = {
     "random_sparse": lambda rng: (_sparse(rng, (60, 90)), 32, 32, 5),
     "random_dense_quantised": lambda rng: (np.round(rng.random((48, 80), np.float32) * 4) / 4, 24, 24, 3),
@@ -49,6 +65,8 @@ CASES = {
     "empty": lambda rng: (np.zeros((30, 40), np.float32), 4, 4, 2),
     "n_stop_zero": lambda rng: (_sparse(rng, (30, 40)), 4, 0, 2),
     "radius_zero": lambda rng: (_sparse(rng, (20, 30)), 12, 12, 0),
+    "signed_and_negative_zero": lambda rng: (_signed(rng), 40, 40, 2),
+    "far_ties_row_major": lambda rng: (_far_ties(), 8, 8, 3),
 }
 
 
