@@ -7,12 +7,18 @@ Drives the port's main path, detect (FAST, greedy selection) -> steered
 BRIEF -> cross-checked Hamming matching, on a batch of 64 frame pairs at
 752x480 with 200 features, the single-frame incremental re-detect path, and
 the LSD line detector (``detect_good_lines``, budget 100, default options) on
-8 scenes at 752x480, all on the card.  It builds every CUDA kernel of these
-paths from the sources in the checkout (greedy selection and the LSD region
-flood), holds each against its plain PyTorch version on the card, shows
-through the launch counters that each path went through its kernels, checks
-the outputs against the port's CPU run, and times it all with CUDA events
-(each kernel's own device time also with torch.profiler).
+8 scenes at 752x480, and the NN serving path (``NNFeaturePointDetector.detect``
+for SuperPoint and DISK, heatmap and NMS types, on the packaged weights in
+bfloat16, default ``NNDetectorOptions``: 240 features, r = 15) on 8 scenes
+at 640x480 with float matching, all on the card.  It builds every CUDA
+kernel of these paths from the sources in the checkout (greedy selection and
+the LSD region flood), holds each against its plain PyTorch version on the
+card, shows through the launch counters that each path went through its
+kernels, checks the outputs against the port's CPU run (the NN
+post-processing fed the card's maps; the bfloat16 forward the path runs, and
+a float32 forward with TF32 off, each against the CPU's), and
+times it all with CUDA events (each kernel's own device time also with
+torch.profiler).
 
 One JSON line per phase.  Before the last line: one JSON object describing
 every kernel, then the card's name and power limit as nvidia-smi gives them.
@@ -42,6 +48,14 @@ SEAM_ROWS, SEAM_COLS = 97, 151  # a map size that is no multiple of any tile
 FLOOD_OPS_PER_VISIT = 20  # float32 operations per valid pixel, neighbour and sweep (lsd_flood.cu)
 ANGLE_ATOL = 5e-7  # two float32 ulps at pi: the card's atan2 against the CPU's
 ENDPOINT_ATOL = 1e-3  # px, as in tests/test_torch_lsd.py
+NN_ROWS, NN_COLS = 480, 640  # the frame size of the JAX bench's NN rows (bench.py:219-243)
+NN_DESC_ATOL = 1e-6  # descriptors of the card's post-processing against the CPU's, given the same maps
+NN_F32_HEAT_ATOL, NN_F32_DESC_ATOL = 1e-4, 1e-3  # float32 forward, card (no TF32) against CPU
+# bfloat16 forward, card against CPU, (heat, desc): the port's bf16 tolerances against Flax (tests/test_torch_nn.py)
+NN_BF16_ATOL = {"superpoint": (2e-2, 6e-3), "disk": (6e-2, 3e-2)}
+NN_SELF_DIST = 1e-3  # L2 distance of a self-match: cosine 1 within float32 rounding
+GREEDY_KERNELS = ("tile_keys_kernel", "pick_kernel")
+NN_TOP_KERNELS = 6  # kernels listed by device time per detect call
 
 
 def emit(phase: str, **fields) -> None:
@@ -81,11 +95,9 @@ def cuda_ms(torch, fn, iters: int, warmup_s: float = 0.25) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, kernels, iters: int) -> float:
-    """Device time per call, in ms, of the CUDA kernels whose names contain
-    one of ``kernels``, summed from a torch.profiler trace of ``iters``
-    calls.  A call's CUDA-event time also holds the host's gaps when the
-    host enqueues more slowly than the card runs."""
+def kernel_times(torch, fn, iters: int) -> dict:
+    """Device time per call, in ms, of every kernel that ``fn`` runs, by
+    name, from a torch.profiler trace of ``iters`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -94,9 +106,16 @@ def device_ms(torch, fn, kernels, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages() if any(k in e.key for k in kernels))
-    check(total_us > 0, f"the profiler saw no device time of {kernels}")
-    return total_us / iters / 1e3
+    return {e.key: e.device_time_total / iters / 1e3 for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def device_ms(torch, fn, kernels, iters: int) -> float:
+    """Device time per call, in ms, of the CUDA kernels whose names contain
+    one of ``kernels``.  A call's CUDA-event time also holds the host's gaps
+    when the host enqueues more slowly than the card runs."""
+    total = sum(ms for name, ms in kernel_times(torch, fn, iters).items() if any(k in name for k in kernels))
+    check(total > 0, f"the profiler saw no device time of {kernels}")
+    return total
 
 
 def greedy_bound_ms(batch: int, rows: int, cols: int, picks: int) -> float:
@@ -260,6 +279,185 @@ def lsd_phase(torch, dev, scenes, smi: str):
             "launches": launches, "max_abs_err": max_err,
             "ms": times["flood_kernel_ms"], "device_ms": times["flood_device_ms"], "plain_ms": times["flood_plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def nn_phase(torch, dev, smi):
+    """The NN serving path on the card, for each of the four model types on
+    the packaged weights in bf16: ``NNFeaturePointDetector.detect`` on every
+    scene (two greedy launches a call, counted) and one incremental call;
+    the CPU post-processing fed the card's maps; the bf16 and an f32 forward
+    against the CPU's; greedy selection against its plain version on the path's
+    candidate maps; float matching; times.  Emits one JSON line per type and
+    returns the greedy kernel's NN-path numbers."""
+    from feature_detector_tpu_torch.core.config import NNDetectorOptions, NNModelType
+    from feature_detector_tpu_torch.core.types import Features
+    from feature_detector_tpu_torch.frontend.nn_detector import (
+        NMS_TYPES,
+        NNFeaturePointDetector,
+        heatmap_candidates,
+        nms_candidates,
+        postprocess,
+    )
+    from feature_detector_tpu_torch.kernels.detect import greedy_select_ref
+    from feature_detector_tpu_torch.kernels.greedy import greedy_select
+    from feature_detector_tpu_torch.match.float_matcher import match_float
+    from feature_detector_tpu_torch.models.superpoint import nms_head
+    from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene
+
+    cpu = torch.device("cpu")
+    scenes = [scene_uint8(synth_scene(np.random.default_rng(s), NN_ROWS, NN_COLS, rich_background=True)[0])
+              for s in range(SCENES)]
+    frames = [torch.from_numpy(sc).to(dev) for sc in scenes]
+    shifted = torch.from_numpy(np.roll(scenes[0], 3, axis=1)).to(dev)
+    k2 = {"launches": 0, "max_abs_err": 0.0, "ms": {}, "device_ms": {}, "plain_ms": {}}
+    f32, bf16 = {}, {}
+    for t in NNModelType:
+        opts = NNDetectorOptions(max_image_rows=NN_ROWS, max_image_cols=NN_COLS, model_type=t)
+        cap, r = opts.max_number_of_detected_features, opts.min_feature_distance
+        family = "superpoint" if "SUPERPOINT" in t.name else "disk"
+        det = NNFeaturePointDetector(opts, device=dev)
+        det.initialize()
+        empty = Features.empty(cap, dev)
+
+        # The path, counted: one detect call per scene.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        greedy_select.launches = 0
+        outs = [det.detect(f) for f in frames]
+        torch.cuda.synchronize()
+        launches = greedy_select.launches
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        check(launches == 2 * len(frames), f"{t.name}: {launches} greedy launches for {len(frames)} detect calls, not 2 each")
+        k2["launches"] += launches
+        counts = [int(f.count) for f, _ in outs]
+        check(all(bool(torch.isfinite(f.uv).all() and torch.isfinite(f.response).all() and torch.isfinite(d).all())
+                  and d.shape[0] == cap for f, d in outs), f"{t.name}: features finite, capacity {cap}")
+        check(min(counts) >= 5, f"{t.name}: too few features per frame: {counts}")
+
+        # One incremental call: half of scene 0's features on its 3-column shift.
+        fa, da = outs[0]
+        n = counts[0] // 2
+        keep = torch.arange(cap, device=dev) < n
+        existing = Features(fa.uv * keep[:, None], fa.response * keep, fa.valid & keep)
+        greedy_select.launches = 0
+        inc, _ = det.detect(shifted, existing)
+        torch.cuda.synchronize()
+        check(greedy_select.launches == 2, f"{t.name}: incremental call launched greedy {greedy_select.launches} times")
+        n_inc = int(inc.count)
+        check(torch.equal(inc.uv[:n], existing.uv[:n]) and bool(inc.valid[:n].all()) and n_inc > n,
+              f"{t.name}: existing prefix kept, new features added")
+        new_uv, old_uv = inc.uv[n:n_inc].cpu().numpy(), existing.uv[:n].cpu().numpy()
+        check(not (np.abs(new_uv[:, None, :] - old_uv[None, :, :]) <= r).all(-1).any(),
+              f"{t.name}: a new pick falls inside an existing square")
+
+        # The CPU post-processing fed the card's maps gives the card's output.
+        desc_err = 0.0
+        for img, ex in ((frames[0], empty), (frames[1], empty), (shifted, existing)):
+            heat, dmap = det.maps(img)
+            card_f, card_d = postprocess(heat, dmap, ex, opts)
+            cpu_f, cpu_d = postprocess(heat.cpu(), dmap.cpu(), ex.to(cpu), opts)
+            check(all(torch.equal(getattr(card_f, k).cpu(), getattr(cpu_f, k)) for k in ("uv", "response", "valid")),
+                  f"{t.name}: CPU post-processing of the card's maps gives other features")
+            desc_err = max(desc_err, float((card_d.cpu() - cpu_d).abs().max()))
+        check(desc_err <= NN_DESC_ATOL, f"{t.name}: descriptors differ from the CPU's by {desc_err}")
+
+        # The forward on the card against the CPU's on scene 0, once per model: float32 with TF32
+        # off, and bfloat16 (the path's own maps, from the detector above).
+        if family not in f32:
+            card32 = NNFeaturePointDetector(opts, device=dev, dtype=torch.float32)
+            cpu32 = NNFeaturePointDetector(opts, device="cpu", dtype=torch.float32)
+            cpu16 = NNFeaturePointDetector(opts, device="cpu")
+            card32.initialize()
+            cpu32.initialize()
+            cpu16.initialize()
+            (gh, gd), (ch, cd) = card32.maps(frames[0]), cpu32.maps(scenes[0])
+            f32[family] = {"heat_max_abs_err": float((gh.cpu() - ch).abs().max()),
+                           "desc_max_abs_err": float((gd.cpu() - cd).abs().max())}
+            check(f32[family]["heat_max_abs_err"] <= NN_F32_HEAT_ATOL and f32[family]["desc_max_abs_err"] <= NN_F32_DESC_ATOL,
+                  f"{family}: float32 forward on the card differs from the CPU's: {f32[family]}")
+            (gh, gd), (ch, cd) = det.maps(frames[0]), cpu16.maps(scenes[0])
+            heat_atol, desc_atol = NN_BF16_ATOL[family]
+            bf16[family] = {"heat_max_abs_err": float((gh.cpu() - ch).abs().max()),
+                            "desc_max_abs_err": float((gd.cpu() - cd).abs().max()),
+                            "heat_atol": heat_atol, "desc_atol": desc_atol}
+            emit("nn_forward_vs_cpu", card=smi, model=family, float32=f32[family], bfloat16=bf16[family])
+            check(bf16[family]["heat_max_abs_err"] <= heat_atol and bf16[family]["desc_max_abs_err"] <= desc_atol,
+                  f"{family}: bfloat16 forward on the card differs from the CPU's: {bf16[family]}")
+            del card32, cpu32, cpu16
+
+        # Greedy kernel against its plain version on the path's candidate maps (not counted).
+        def candidates(img):
+            heat, dmap = det.maps(img)
+            if t in NMS_TYPES:
+                kpts, scores, _ = nms_head(heat, dmap, min_response=opts.min_response)
+                return nms_candidates(kpts, scores, empty, opts, NN_ROWS, NN_COLS)[0]
+            return heatmap_candidates(heat, empty, opts)
+
+        cands = [candidates(f) for f in frames]
+        for cand in cands[:2]:
+            got = greedy_select(cand, cap, cap, r)
+            torch.cuda.synchronize()
+            want = greedy_select_ref(cand, cap, cap, r)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{t.name}: greedy kernel != plain on the NN map")
+            k2["max_abs_err"] = max(k2["max_abs_err"], max_abs_err(torch, got, want))
+        positives = [int((c > 0).sum()) for c in cands]
+        cand0 = cands[0]
+
+        # Float matching: scene 0 against its 3-column shift, and itself.
+        fb, db = det.detect(shifted)
+        m = match_float(da, fa.valid, db, fb.valid)
+        n_match = int(m.count)
+        check(n_match >= 5, f"{t.name}: {n_match} float matches between a frame and its shift")
+        ok = m.valid
+        moved = (fb.uv[m.index.clamp(min=0).long()] - fa.uv - torch.tensor([3.0, 0.0], device=dev)).abs().amax(1)
+        describable = fa.valid & (da.norm(dim=1) > 0)
+        me = match_float(da, describable, da, describable)
+        self_ok = (torch.equal(me.valid, describable)
+                   and torch.equal(me.index[describable], torch.arange(cap, device=dev, dtype=torch.int32)[describable])
+                   and float(me.distance[describable].max()) <= NN_SELF_DIST)
+        check(self_ok, f"{t.name}: self-match of every describable feature at cosine 1")
+
+        # Times.
+        heat0, dmap0 = det.maps(frames[0])
+        x8 = torch.cat([det.preprocess(f) for f in frames])
+        times = {
+            "forward_ms": cuda_ms(torch, lambda: det.maps(frames[0]), 20),
+            "postprocess_ms": cuda_ms(torch, lambda: postprocess(heat0, dmap0, empty, opts), 20),
+            "greedy_ms": cuda_ms(torch, lambda: greedy_select(cand0, cap, cap, r), 50),
+            "greedy_device_ms": device_ms(torch, lambda: greedy_select(cand0, cap, cap, r), GREEDY_KERNELS, 20),
+            "greedy_plain_ms": cuda_ms(torch, lambda: greedy_select_ref(cand0, cap, cap, r), 2),
+            "detect_ms_per_frame": cuda_ms(torch, lambda: [det.detect(f) for f in frames], 3) / len(frames),
+            "match_float_ms_per_pair": cuda_ms(torch, lambda: match_float(da, fa.valid, db, fb.valid), 20),
+        }
+        with torch.no_grad():
+            torch.cuda.reset_peak_memory_stats()
+            times["forward_ms_b8"] = cuda_ms(torch, lambda: det.model(x8), 5)
+            peak_b8_mib = torch.cuda.max_memory_allocated() / 2**20
+        t0 = time.perf_counter()
+        for f in frames:
+            det.detect(f)
+        torch.cuda.synchronize()
+        times["detect_wall_ms_per_frame"] = (time.perf_counter() - t0) / len(frames) * 1e3
+        # Where a detect call's device time goes; the rest of its time the card idles.
+        per_kernel = kernel_times(torch, lambda: det.detect(frames[0]), 10)
+        times["detect_device_busy_ms"] = sum(per_kernel.values())
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:NN_TOP_KERNELS]
+        for key in ("ms", "device_ms", "plain_ms"):
+            k2[key][t.name] = times["greedy_" + key]
+        emit("nn", card=smi, model_type=t.name, rows=NN_ROWS, cols=NN_COLS, frames=len(frames), dtype="bfloat16",
+             greedy_launches=launches, incremental_greedy_launches=2, features_per_frame=counts,
+             features_per_frame_mean=float(np.mean(counts)), positive_candidates_per_frame=positives,
+             positive_candidates_per_frame_mean=float(np.mean(positives)), incremental_existing=n,
+             incremental_total=n_inc, cpu_postprocess_features_exact=True, cpu_postprocess_desc_max_abs_err=desc_err,
+             f32_forward_vs_cpu=f32[family], bf16_forward_vs_cpu=bf16[family], greedy_exact_on_nn_maps=True, float_matches=n_match,
+             float_matches_at_the_shift=int((ok & (moved <= 1.0)).sum()), self_matches=int(me.count),
+             describable=int(describable.sum()), **times, detect_kernels_per_call=len(per_kernel),
+             detect_top_kernels_ms=[[name[:90], ms] for name, ms in top], peak_memory_mib_detect=peak_mib,
+             peak_memory_mib_forward_b8=peak_b8_mib)
+        del det, outs, x8
+        torch.cuda.empty_cache()
+    k2["bound_ms"] = greedy_bound_ms(1, NN_ROWS, NN_COLS, NNDetectorOptions().max_number_of_detected_features)
+    return k2
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -480,9 +678,8 @@ def main() -> int:
         "greedy_ms_b1_dense_200_picks": cuda_ms(torch, lambda: greedy_select(dense_t[0], PICKS, PICKS, RADIUS), 10),
         "greedy_ms_b1_busiest_frame": cuda_ms(torch, lambda: greedy_select(cand_batch[busiest], PICKS, PICKS, RADIUS), 10),
     }
-    greedy_kernels = ("tile_keys_kernel", "pick_kernel")
-    times["greedy_device_ms_b64"] = device_ms(torch, lambda: greedy_select(cand_batch, PICKS, PICKS, RADIUS), greedy_kernels, 10)
-    times["greedy_device_ms_b1"] = device_ms(torch, lambda: greedy_select(cand_one, PICKS, stop_one, RADIUS), greedy_kernels, 20)
+    times["greedy_device_ms_b64"] = device_ms(torch, lambda: greedy_select(cand_batch, PICKS, PICKS, RADIUS), GREEDY_KERNELS, 10)
+    times["greedy_device_ms_b1"] = device_ms(torch, lambda: greedy_select(cand_one, PICKS, stop_one, RADIUS), GREEDY_KERNELS, 20)
     detect_ms = cuda_ms(torch, lambda: detect_good_features_batch(ja, "fast", PICKS, opts), 10)
     describe_ms = cuda_ms(torch, lambda: compute_descriptors(ja, fa, bopts), 10)
     match_ms = cuda_ms(torch, lambda: match_hamming(da.words, da.valid, db.words, db.valid, mopts), 10)
@@ -507,6 +704,7 @@ def main() -> int:
          library_call="none")
 
     lsd_kernel = lsd_phase(torch, dev, scenes, smi)
+    nn_k2 = nn_phase(torch, dev, smi)
 
     kernels = [
         {"name": "greedy_select (batch)", "route": "cuda", "source": SOURCE,
@@ -518,7 +716,8 @@ def main() -> int:
          "replaces": "feature_detector_tpu/kernels/greedy_pallas.py:35",
          "launches": single_launches, "max_abs_err": errs[1],
          "ms": times["greedy_ms_b1"], "device_ms": times["greedy_device_ms_b1"], "plain_ms": times["greedy_plain_ms_b1"],
-         "bound_ms": greedy_bound_ms(1, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None},
+         "bound_ms": greedy_bound_ms(1, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None,
+         "nn_path": nn_k2},
         lsd_kernel,
     ]
     emit("done", seconds=time.perf_counter() - t_start)

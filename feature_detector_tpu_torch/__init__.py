@@ -15,6 +15,8 @@ from .core.config import (
     HarrisOptions,
     LineDetectorOptions,
     MatcherOptions,
+    NNDetectorOptions,
+    NNModelType,
     ShiTomasiOptions,
 )
 from .core.device import resolve_device
@@ -22,14 +24,17 @@ from .core.types import Descriptors, Features, Lines, Matches
 from .frontend.descriptor import compute_descriptors, compute_descriptors_float, describe_and_match
 from .frontend.detector import detect_good_features, detect_good_features_batch, sparsify_features
 from .frontend.line_detector import LineDetectorState, detect_good_lines, detect_good_lines_with_state
+from .frontend.nn_detector import NNFeaturePointDetector
 from .kernels.greedy import greedy_select
+from .match.float_matcher import FloatMatcherOptions, match_float
 from .match.hamming import match_hamming
 
 __all__ = [
     "BriefOptions", "DetectorOptions", "FastOptions", "HarrisOptions", "LineDetectorOptions",
-    "MatcherOptions", "ShiTomasiOptions", "resolve_device", "Descriptors", "Features", "Lines",
-    "Matches", "compute_descriptors", "compute_descriptors_float", "describe_and_match",
+    "MatcherOptions", "NNDetectorOptions", "NNModelType", "ShiTomasiOptions", "resolve_device",
+    "Descriptors", "Features", "Lines", "Matches", "compute_descriptors", "compute_descriptors_float", "describe_and_match",
     "detect_good_features", "detect_good_features_batch", "sparsify_features",
     "LineDetectorState", "detect_good_lines", "detect_good_lines_with_state",
-    "greedy_select", "match_hamming",
+    "greedy_select", "match_hamming", "NNFeaturePointDetector", "FloatMatcherOptions",
+    "match_float",
 ]

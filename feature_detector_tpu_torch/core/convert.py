@@ -1,11 +1,13 @@
 """Carry state from the JAX package into the port.
 
 The JAX package's containers (``Features``, ``Descriptors``, ``Matches``,
-``Lines``), its option dataclasses and its BRIEF pattern table become the
-port's objects.  Arrays are read through ``np.asarray``, so the JAX objects
-may hold jax arrays or numpy arrays: this module never imports JAX.  The
-incremental re-detect path takes JAX-detected ``existing`` features through
-``from_jax``.
+``Lines``), its option dataclasses, its BRIEF pattern table and the Flax
+param trees of its NN models become the port's objects.  Arrays are read
+through ``np.asarray``, so the JAX objects may hold jax arrays or numpy
+arrays: this module never imports JAX.  The incremental re-detect path takes
+JAX-detected ``existing`` features through ``from_jax``; the NN models take
+their weights through ``superpoint_state_from_flax`` and
+``disk_state_from_flax`` (kernels HWIO -> OIHW).
 """
 
 from __future__ import annotations
@@ -64,6 +66,54 @@ def brief_pattern_from_numpy(table) -> torch.Tensor:
     if t.ndim != 2 or t.shape[1] != 4 or not np.issubdtype(t.dtype, np.integer):
         raise ValueError(f"BRIEF pattern must be an integer [N, 4] table, got {t.dtype} {t.shape}")
     return torch.as_tensor(t.astype(np.int64))
+
+
+SUPERPOINT_LAYERS = (
+    "conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b", "conv4a",
+    "conv4b", "convPa", "convPb", "convDa", "convDb",
+)
+DISK_BLOCKS = ("down_0", "down_1", "down_2", "down_3", "down_4", "up_0", "up_1", "up_2", "up_3")
+
+
+def _conv_state(prefix: str, leaf) -> dict:
+    """A Flax conv leaf {kernel HWIO, bias} as torch ``weight`` (OIHW) and ``bias``."""
+    kernel = np.asarray(leaf["kernel"], np.float32)
+    if kernel.ndim != 4:
+        raise ValueError(f"{prefix}: conv kernel must be HWIO, got shape {kernel.shape}")
+    return {
+        f"{prefix}.weight": torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))),
+        f"{prefix}.bias": torch.from_numpy(np.asarray(leaf["bias"], np.float32).copy()),
+    }
+
+
+def _params(tree) -> dict:
+    return tree["params"] if "params" in tree else tree
+
+
+def superpoint_state_from_flax(tree) -> dict:
+    """A Flax param tree of ``models.superpoint.SuperPoint`` (packaged, or
+    ``model.init``; leaves numpy or jax arrays) as the ``state_dict`` of the
+    port's ``SuperPoint``.  The 3x3 blocks wrap their conv as
+    ``<layer>/Conv_0``; the 1x1 heads convPb and convDb are bare convs."""
+    params = _params(tree)
+    state = {}
+    for name in SUPERPOINT_LAYERS:
+        leaf = params[name] if name in ("convPb", "convDb") else params[name]["Conv_0"]
+        state.update(_conv_state(name, leaf))
+    return state
+
+
+def disk_state_from_flax(tree) -> dict:
+    """A Flax param tree of ``models.disk.Disk`` as the ``state_dict`` of the
+    port's ``Disk``: ``<block>/conv`` becomes ``<block>.conv`` and the PReLU
+    ``<block>/gate/alpha`` the gate's ``weight`` (the stem has no gate)."""
+    params = _params(tree)
+    state = {}
+    for name in DISK_BLOCKS:
+        state.update(_conv_state(f"{name}.conv", params[name]["conv"]))
+        if "gate" in params[name]:
+            state[f"{name}.gate.weight"] = torch.from_numpy(np.asarray(params[name]["gate"]["alpha"], np.float32).copy())
+    return state
 
 
 def from_jax(obj, device: DeviceLike = None):

@@ -73,17 +73,23 @@ def detect_good_features(
     mask = K.make_suppression_mask(image.shape, existing.uv, existing.valid, opts.min_feature_distance)
     cand, raw_resp = _candidate_map(image, mask, kind, opts, sub)
 
-    n_existing = existing.count
-    n_stop = torch.clamp(needed_num - n_existing, min=0).to(torch.int32).reshape(1)
+    n_stop = torch.clamp(needed_num - existing.count, min=0).to(torch.int32).reshape(1)
     # A zero budget returns no new features (documented divergence from the
     # reference); max_picks >= 1 keeps shapes non-empty.
     max_picks = max(1, min(needed_num, capacity))
     new_uv, new_resp, new_valid = greedy_select(cand, max_picks, n_stop, opts.min_feature_distance)
     if opts.subpixel:
         new_uv = K.subpixel_refine(raw_resp, new_uv, new_valid)
+    return append_after_existing(existing, new_uv, new_resp, new_valid)
 
-    # Append the new picks after the existing prefix (Q9).
-    idx = torch.arange(capacity, device=image.device)
+
+def append_after_existing(existing: Features, new_uv, new_resp, new_valid) -> Features:
+    """The new picks ``[P, ...]`` written after the existing prefix (Q9):
+    slot ``count + j`` takes pick ``j``, slots past the last pick are
+    invalid."""
+    capacity, max_picks = existing.capacity, new_uv.shape[0]
+    n_existing = existing.count
+    idx = torch.arange(capacity, device=new_uv.device)
     rel = idx - n_existing
     src = torch.clamp(rel, 0, max_picks - 1)
     src_ok = rel < max_picks

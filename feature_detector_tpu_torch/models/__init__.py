@@ -1,1 +1,1 @@
-"""Synthetic data."""
+"""NN models (SuperPoint, DISK), their packaged weights, and synthetic data."""

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from feature_detector_tpu_torch.core.config import DetectorOptions, LineDetectorOptions
+from feature_detector_tpu_torch.core.config import DetectorOptions, LineDetectorOptions, NNDetectorOptions, NNModelType
 from feature_detector_tpu_torch.core.types import Features
 from feature_detector_tpu_torch.frontend.descriptor import compute_descriptors
 from feature_detector_tpu_torch.frontend.detector import detect_good_features, detect_good_features_batch
@@ -21,6 +21,8 @@ from feature_detector_tpu_torch.kernels import lsd_flood as LF
 from feature_detector_tpu_torch.kernels.detect import greedy_select_ref
 from feature_detector_tpu_torch.kernels.greedy import GREEDY_TILE, greedy_select
 from feature_detector_tpu_torch.kernels.lsd import fit_lines, propagate_labels_meanangle
+from feature_detector_tpu_torch.frontend.nn_detector import NNFeaturePointDetector, postprocess
+from feature_detector_tpu_torch.match.float_matcher import FloatMatcherOptions, match_float
 from feature_detector_tpu_torch.match.hamming import match_hamming
 from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene, tile_edge_ties
 
@@ -236,3 +238,51 @@ def test_lines_on_card_agree_with_cpu(cuda):
         assert float((ends - card.lines.endpoints.cpu()).abs().max()) <= 1e-3
         again = detect_good_lines(frame.to(cuda), 10, opts)
         assert torch.equal(again.endpoints, card.lines.endpoints) and torch.equal(again.valid, card.lines.valid)
+
+
+@pytest.mark.parametrize("model_type", list(NNModelType), ids=lambda t: t.name.lower())
+def test_nn_detect_on_card_equals_cpu_postprocess(cuda, model_type):
+    """As chip_smoke.py's NN phase at 128x160: two greedy launches per
+    detect call; the CPU post-processing fed the card's maps gives the
+    card's features exactly and its descriptors within 1e-6; an
+    incremental call keeps the prefix."""
+    opts = NNDetectorOptions(max_image_rows=128, max_image_cols=160, model_type=model_type)
+    det = NNFeaturePointDetector(opts)
+    det.initialize()
+    frame = torch.from_numpy(scene_uint8(synth_scene(np.random.default_rng(23), 128, 160, rich_background=True)[0]))
+    heat, desc_map = det.maps(frame.to(cuda))
+    before = greedy_select.launches
+    feats, descs = postprocess(heat, desc_map, Features.empty(240, cuda), opts)
+    torch.cuda.synchronize()
+    assert greedy_select.launches == before + 2
+    cpu_feats, cpu_descs = postprocess(heat.cpu(), desc_map.cpu(), Features.empty(240, "cpu"), opts)
+    for k in ("uv", "response", "valid"):
+        assert torch.equal(getattr(feats, k).cpu(), getattr(cpu_feats, k))
+    assert float((descs.cpu() - cpu_descs).abs().max()) <= 1e-6
+    assert int(feats.count) >= 5 and bool(torch.isfinite(descs).all())
+    n = int(feats.count) // 2
+    keep = torch.arange(240, device=cuda) < n
+    existing = Features(feats.uv * keep[:, None], feats.response * keep, feats.valid & keep)
+    before = greedy_select.launches
+    inc, _ = det.detect(torch.roll(frame, 3, dims=1).to(cuda), existing)
+    torch.cuda.synchronize()
+    assert greedy_select.launches == before + 2
+    assert torch.equal(inc.uv[:n], existing.uv[:n]) and bool(inc.valid[:n].all())
+
+
+@pytest.mark.parametrize("kw", [{}, {"metric": "l2", "ratio": 0.8}, {"cross_check": False, "min_similarity": 0.5}],
+                         ids=["cosine", "l2_ratio", "no_cross_check"])
+def test_match_float_on_card_equals_cpu(cuda, kw):
+    rng = np.random.default_rng(9)
+    a = rng.normal(size=(240, 128)).astype(np.float32)
+    b = np.concatenate([a[:150] + 0.3 * rng.normal(size=(150, 128)), rng.normal(size=(90, 128))]).astype(np.float32)
+    b[200] = b[3]  # a tie: the lower index wins on both devices
+    va, vb = np.arange(240) % 7 != 0, np.arange(240) % 11 != 0
+    out = {}
+    for dev in ("cpu", cuda):
+        m = match_float(torch.from_numpy(a).to(dev), torch.from_numpy(va).to(dev), torch.from_numpy(b).to(dev),
+                        torch.from_numpy(vb).to(dev), FloatMatcherOptions(**kw))
+        out[str(dev)] = [t.cpu() for t in (m.index, m.distance, m.valid)]
+    assert torch.equal(out["cuda"][0], out["cpu"][0]) and torch.equal(out["cuda"][2], out["cpu"][2])
+    assert torch.allclose(out["cuda"][1], out["cpu"][1], atol=2e-6, rtol=0)
+    assert int(out["cpu"][2].sum()) >= 50

@@ -145,7 +145,11 @@ def test_port_imports_no_jax():
         "import sys, feature_detector_tpu_torch, feature_detector_tpu_torch.core.convert, "
         "feature_detector_tpu_torch.models.synth_data, feature_detector_tpu_torch.kernels._build, "
         "feature_detector_tpu_torch.kernels.lsd, feature_detector_tpu_torch.kernels.lsd_flood, "
-        "feature_detector_tpu_torch.frontend.line_detector, chip_smoke, tests.test_torch_gpu\n"
+        "feature_detector_tpu_torch.frontend.line_detector, feature_detector_tpu_torch.models.weights, "
+        "feature_detector_tpu_torch.models.superpoint, feature_detector_tpu_torch.models.disk, "
+        "feature_detector_tpu_torch.frontend.nn_detector, feature_detector_tpu_torch.match.float_matcher, "
+        "feature_detector_tpu_torch.kernels.nn_ops, "
+        "chip_smoke, tests.test_torch_gpu\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'feature_detector_tpu')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
     )
