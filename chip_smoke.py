@@ -10,15 +10,18 @@ the LSD line detector (``detect_good_lines``, budget 100, default options) on
 8 scenes at 752x480, and the NN serving path (``NNFeaturePointDetector.detect``
 for SuperPoint and DISK, heatmap and NMS types, on the packaged weights in
 bfloat16, default ``NNDetectorOptions``: 240 features, r = 15) on 8 scenes
-at 640x480 with float matching, all on the card.  It builds every CUDA
-kernel of these paths from the sources in the checkout (greedy selection and
-the LSD region flood), holds each against its plain PyTorch version on the
-card, shows through the launch counters that each path went through its
-kernels, checks the outputs against the port's CPU run (the NN
-post-processing fed the card's maps; the bfloat16 forward the path runs, and
-a float32 forward with TF32 off, each against the CPU's), and
-times it all with CUDA events (each kernel's own device time also with
-torch.profiler).
+at 640x480 with float matching, and the fused chunked visual odometry
+(``run_visual_odometry_chunked``, default options) on the 120-frame bench
+sequence at 240x320, all on the card.  It builds every CUDA kernel of these
+paths from the sources in the checkout (greedy selection and the LSD region
+flood), holds each against its plain PyTorch version on the card (greedy
+selection also on the VO's own candidate maps), shows through the launch
+counters that each path went through its kernels, checks the outputs
+against the port's CPU run (the NN post-processing fed the card's maps; the
+bfloat16 forward the path runs, and a float32 forward with TF32 off, each
+against the CPU's; the VO's scan front-end over 8 frames and its global BA
+problem), checks the VO's ATE, and times it all with CUDA events (each
+kernel's own device time also with torch.profiler).
 
 One JSON line per phase.  Before the last line: one JSON object describing
 every kernel, then the card's name and power limit as nvidia-smi gives them.
@@ -56,6 +59,16 @@ NN_BF16_ATOL = {"superpoint": (2e-2, 6e-3), "disk": (6e-2, 3e-2)}
 NN_SELF_DIST = 1e-3  # L2 distance of a self-match: cosine 1 within float32 rounding
 GREEDY_KERNELS = ("tile_keys_kernel", "pick_kernel")
 NN_TOP_KERNELS = 6  # kernels listed by device time per detect call
+# The VO bench sequence (bench.py:275-276): 120 frames at 240x320, 900 landmarks, seed 7.
+VO_FRAMES, VO_LANDMARKS, VO_SEED = 120, 900, 7
+VO_CHECK_FRAMES = 8  # scan front-end on the card against the CPU over these first frames
+VO_TIMED_RUNS = 2
+VO_ATE_SPAN_SHARE = 0.03  # tests/test_sequence.py:274
+VO_K2_FRAMES = (0, 3, 7)  # the VO candidate maps K2 is held against its plain version on
+VO_HARRIS_REL = 1e-4  # a feature whose Harris response is within this of the threshold may flip
+VO_BA_POSE_ATOL = 1e-4  # global BA (solved in float64) on the card against the CPU: rotations, centers / span
+VO_BA_POINT_ATOL = 1e-3  # the same for points, relative to the span
+VO_TOP_KERNELS = 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -460,6 +473,182 @@ def nn_phase(torch, dev, smi):
     return k2
 
 
+def vo_phase(torch, dev, smi):
+    """The fused chunked VO on the card at the bench's size: one cold run
+    (counted: two greedy launches a frame), timed runs with per-stage times,
+    ATE, a profiler run (busy share, top kernels), the scan front-end on the
+    card against the CPU's, K2 against its plain version on the VO's own
+    candidate maps, the global BA problem solved on the card and on the CPU,
+    and the RANSAC draws on both.  Emits one JSON line and returns K2's
+    VO-path numbers."""
+    import inspect
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from feature_detector_tpu_torch.core.config import BriefOptions, DetectorOptions, HarrisOptions
+    from feature_detector_tpu_torch.core.types import Features
+    from feature_detector_tpu_torch.frontend.detector import detection_maps
+    from feature_detector_tpu_torch.kernels.detect import greedy_select_ref, harris_response_raw
+    from feature_detector_tpu_torch.kernels.greedy import greedy_select
+    from feature_detector_tpu_torch.slam import geometry
+    from feature_detector_tpu_torch.slam.ba import BAProblem, ba_solve
+    from feature_detector_tpu_torch.slam.evaluate import ate_rmse
+    from feature_detector_tpu_torch.slam.sequence import (
+        make_synthetic_sequence,
+        run_visual_odometry_chunked,
+        scan_frontend,
+    )
+    from feature_detector_tpu_torch.slam.vo_fused import run_visual_odometry_fused
+
+    t0 = time.perf_counter()
+    seq = make_synthetic_sequence(n_frames=VO_FRAMES, n_landmarks=VO_LANDMARKS, seed=VO_SEED, motion="lateral",
+                                  angle_step=0.03)
+    render_s = time.perf_counter() - t0
+    imgs = torch.from_numpy(seq.images).to(dev)
+    det = DetectorOptions(min_feature_distance=10, min_valid_response=20.0, max_features=256, subpixel=True)
+    brief = BriefOptions(upright=True)  # the fused VO's defaults
+    gt = seq.trajectory.positions
+    span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+
+    # Cold run, counted: every frame's top-up detection is one greedy call.
+    torch.cuda.synchronize()
+    greedy_select.launches = 0
+    t0 = time.perf_counter()
+    res = run_visual_odometry_chunked(imgs, seq.cam)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = greedy_select.launches
+    check(launches == 2 * VO_FRAMES, f"VO path launched the greedy kernels {launches} times, not 2 x {VO_FRAMES}")
+    pos = res.trajectory.positions
+    check(len(res.trajectory) == VO_FRAMES and pos.shape == (VO_FRAMES, 3) and bool(np.isfinite(pos).all()),
+          "VO trajectory: finite, one pose a frame")
+    ate = float(ate_rmse(pos, gt, with_scale=True))
+    check(ate <= VO_ATE_SPAN_SHARE * span, f"VO ATE {ate} m is over {VO_ATE_SPAN_SHARE:.0%} of the {span} m span")
+
+    # Timed runs.
+    runs = []
+    for _ in range(VO_TIMED_RUNS):
+        stages = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        r = run_visual_odometry_chunked(imgs, seq.cam, stage_seconds=stages)
+        end.record()
+        torch.cuda.synchronize()
+        runs.append({"wall_s": time.perf_counter() - t0, "event_s": start.elapsed_time(end) / 1e3, "stages_s": stages,
+                     "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20,
+                     "ate_m": float(ate_rmse(r.trajectory.positions, gt, with_scale=True))})
+    check(all(run["ate_m"] <= VO_ATE_SPAN_SHARE * span for run in runs), f"timed VO runs' ATE: {runs}")
+
+    # One run under the profiler: the card's busy time against the run's event time.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run_visual_odometry_chunked(imgs, seq.cam)
+        end.record()
+        torch.cuda.synchronize()
+    prof_event_ms = start.elapsed_time(end)
+    per_kernel = {e.key: e.device_time_total / 1e3 for e in prof.key_averages() if e.device_time_total > 0}
+    counts = {e.key: e.count for e in prof.key_averages() if e.device_time_total > 0}
+    busy_ms = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:VO_TOP_KERNELS]
+    check(busy_ms > 0, "the profiler saw no device time on the VO path")
+
+    # The scan front-end on the card against the CPU's over the first frames.
+    card_fe = scan_frontend(imgs[:VO_CHECK_FRAMES], "harris", 200, det, brief)
+    cpu_fe = scan_frontend(seq.images[:VO_CHECK_FRAMES], "harris", 200, det, brief, device="cpu")
+    raw = harris_response_raw(torch.from_numpy(seq.images[:VO_CHECK_FRAMES]).to(torch.float32), HarrisOptions()).numpy()
+    (cf, cw, cv, cl), (pf, pw, pv, pl) = [(f, w.cpu().numpy(), v.cpu().numpy(), l.cpu().numpy()) for f, w, v, l in
+                                          (card_fe, cpu_fe)]
+    frames_equal, excused, first_diff = 0, 0, None
+    for f in range(VO_CHECK_FRAMES):
+        differ = ((cf.uv[f].cpu() != pf.uv[f]).any(-1) | (cf.response[f].cpu() != pf.response[f])
+                  | (cf.valid[f].cpu() != pf.valid[f])).numpy() | (cw[f] != pw[f]).any(-1) | (cv[f] != pv[f])
+        if f > 0:
+            differ |= cl[f - 1] != pl[f - 1]
+        if not differ.any():
+            frames_equal += 1
+            continue
+        uv = np.concatenate([cf.uv[f].cpu().numpy()[differ], pf.uv[f].numpy()[differ]])
+        x = np.clip(uv[:, 0].astype(np.int64), 0, raw.shape[2] - 1)
+        y = np.clip(uv[:, 1].astype(np.int64), 0, raw.shape[1] - 1)
+        near = np.abs(raw[f, y, x] - det.min_valid_response) <= VO_HARRIS_REL * det.min_valid_response
+        check(bool(near.all()), f"VO scan front-end: frame {f} differs from the CPU at features off the threshold")
+        excused, first_diff = int(differ.sum()), f
+        break  # the carry step feeds every later frame from this one
+
+    # K2 against its plain version on the VO's own candidate maps (not counted).
+    saved = greedy_select.launches
+    k2_err, k2_ms, k2_dev_ms, k2_plain_ms = 0.0, [], [], []
+    for f in VO_K2_FRAMES:
+        n_carried = int((card_fe[3][f - 1] >= 0).sum()) if f > 0 else 0
+        keep = torch.arange(det.max_features, device=dev) < n_carried
+        fr = card_fe[0]
+        prefix = Features(fr.uv[f] * keep[:, None], fr.response[f] * keep, fr.valid[f] & keep)
+        cand, _ = detection_maps(imgs[f], prefix, "harris", det)
+        stop = torch.tensor([200 - n_carried], dtype=torch.int32, device=dev)
+        got = greedy_select(cand, 200, stop, det.min_feature_distance)
+        torch.cuda.synchronize()
+        want = greedy_select_ref(cand, 200, stop, det.min_feature_distance)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)), f"greedy kernel != plain on VO frame {f}'s map")
+        k2_err = max(k2_err, max_abs_err(torch, got, want))
+        k2_ms.append(cuda_ms(torch, lambda: greedy_select(cand, 200, stop, det.min_feature_distance), 50))
+        k2_dev_ms.append(device_ms(torch, lambda: greedy_select(cand, 200, stop, det.min_feature_distance),
+                                   GREEDY_KERNELS, 20))
+        k2_plain_ms.append(cuda_ms(torch, lambda: greedy_select_ref(cand, 200, stop, det.min_feature_distance), 2))
+    greedy_select.launches = saved
+
+    # The run's global BA problem solved on the card and on the CPU (float64 solves).
+    prob = res.problem
+    cpu_prob = BAProblem(*[x.cpu() for x in prob])
+    ba_opts = inspect.signature(run_visual_odometry_fused).parameters["ba_opts"].default
+    t0 = time.perf_counter()
+    card_ba = ba_solve(prob, seq.cam, ba_opts)
+    torch.cuda.synchronize()
+    card_ba_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_ba = ba_solve(cpu_prob, seq.cam, ba_opts)
+    cpu_ba_s = time.perf_counter() - t0
+    centers = lambda p: -torch.einsum("fji,fj->fi", p.rot.cpu(), p.trans.cpu())
+    ba_err = {
+        "rot_max_abs_err": float((card_ba.rot.cpu() - cpu_ba.rot).abs().max()),
+        "center_max_abs_err_over_span": float((centers(card_ba) - centers(cpu_ba)).abs().max()) / span,
+    }
+    has = (prob.obs_cam.cpu() >= 0).sum(1) >= 2
+    ba_err["point_max_abs_err_over_span"] = float((card_ba.points.cpu() - cpu_ba.points)[has].abs().max()) / span
+    ba_ok = (ba_err["rot_max_abs_err"] <= VO_BA_POSE_ATOL and ba_err["center_max_abs_err_over_span"] <= VO_BA_POSE_ATOL
+             and ba_err["point_max_abs_err_over_span"] <= VO_BA_POINT_ATOL)
+
+    # The RANSAC draws: CPU generator, copied to the card.
+    draws_equal = all(torch.equal(geometry.ransac_gumbel(0, r, n, dev).cpu(), geometry.ransac_gumbel(0, r, n, "cpu"))
+                      for r, n in ((48, det.max_features), (64, 512)))
+
+    mean = lambda key: float(np.mean([run[key] for run in runs]))
+    stage_means = {k: float(np.mean([run["stages_s"][k] for run in runs])) for k in runs[0]["stages_s"]}
+    emit("vo", card=smi, frames=VO_FRAMES, rows=int(seq.images.shape[1]), cols=int(seq.images.shape[2]),
+         landmarks=VO_LANDMARKS, seed=VO_SEED, render_s=render_s, cold_run_s=cold_s,
+         frames_per_s_wall=VO_FRAMES / mean("wall_s"), frames_per_s_events=VO_FRAMES / mean("event_s"),
+         runs=runs, stage_s_mean=stage_means, ate_m=ate, span_m=span, ate_share_of_span=ate / span,
+         num_tracks=res.num_tracks, mean_track_length=res.mean_track_length, points=int(len(res.points)),
+         global_ba_tracks_padded=int(prob.points.shape[0]), greedy_launches=launches,
+         profiled_run_event_ms=prof_event_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / prof_event_ms,
+         device_kernels=sum(counts.values()), top_kernels_ms=[[name[:90], ms, counts[name]] for name, ms in top],
+         frontend_frames_checked=VO_CHECK_FRAMES, frontend_frames_equal=frames_equal,
+         frontend_excused_near_threshold=excused, frontend_first_differing_frame=first_diff,
+         k2_exact_on_vo_maps=list(VO_K2_FRAMES), global_ba_card_vs_cpu=ba_err,
+         global_ba_tolerance={"pose": VO_BA_POSE_ATOL, "point": VO_BA_POINT_ATOL}, global_ba_card_s=card_ba_s,
+         global_ba_cpu_s=cpu_ba_s, ransac_draws_equal=draws_equal)
+    check(ba_ok, f"global BA on the card differs from the CPU's: {ba_err}")
+    check(draws_equal, "RANSAC draws differ between the card and the CPU")
+    return {"launches": launches, "max_abs_err": k2_err, "ms": float(np.mean(k2_ms)),
+            "device_ms": float(np.mean(k2_dev_ms)), "plain_ms": float(np.mean(k2_plain_ms)),
+            "bound_ms": greedy_bound_ms(1, int(seq.images.shape[1]), int(seq.images.shape[2]), 200),
+            "maps": [f"frame {f}" for f in VO_K2_FRAMES]}
+
+
 def max_abs_err(torch, got, want) -> float:
     return max(float((g.to(torch.float32) - w.to(torch.float32)).abs().max()) for g, w in zip(got, want))
 
@@ -705,6 +894,7 @@ def main() -> int:
 
     lsd_kernel = lsd_phase(torch, dev, scenes, smi)
     nn_k2 = nn_phase(torch, dev, smi)
+    vo_k2 = vo_phase(torch, dev, smi)
 
     kernels = [
         {"name": "greedy_select (batch)", "route": "cuda", "source": SOURCE,
@@ -717,7 +907,7 @@ def main() -> int:
          "launches": single_launches, "max_abs_err": errs[1],
          "ms": times["greedy_ms_b1"], "device_ms": times["greedy_device_ms_b1"], "plain_ms": times["greedy_plain_ms_b1"],
          "bound_ms": greedy_bound_ms(1, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None,
-         "nn_path": nn_k2},
+         "nn_path": nn_k2, "vo_path": vo_k2},
         lsd_kernel,
     ]
     emit("done", seconds=time.perf_counter() - t_start)

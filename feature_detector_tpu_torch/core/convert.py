@@ -7,7 +7,9 @@ through ``np.asarray``, so the JAX objects may hold jax arrays or numpy
 arrays: this module never imports JAX.  The incremental re-detect path takes
 JAX-detected ``existing`` features through ``from_jax``; the NN models take
 their weights through ``superpoint_state_from_flax`` and
-``disk_state_from_flax`` (kernels HWIO -> OIHW).
+``disk_state_from_flax`` (kernels HWIO -> OIHW); the SLAM tests hand the
+JAX package's ``BAProblem``, ``PoseGraph`` and ``Pinhole`` over through
+``from_jax`` too.
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ import enum
 import numpy as np
 import torch
 
+from ..slam.ba import BAProblem
+from ..slam.camera import Pinhole
+from ..slam.pose_graph import PoseGraph
 from . import config as C
 from .device import DeviceLike, as_tensor
 from .types import Descriptors, Features, Lines, Matches, words_from_numpy
@@ -116,6 +121,21 @@ def disk_state_from_flax(tree) -> dict:
     return state
 
 
+def ba_problem_from_numpy(rot, trans, points, obs_cam, obs_uv, device: DeviceLike = None):
+    """A BA problem's arrays (the JAX package's ``BAProblem`` fields) as the
+    port's ``slam.ba.BAProblem``."""
+    f32 = lambda x: as_tensor(np.asarray(x, np.float32), device)
+    return BAProblem(f32(rot), f32(trans), f32(points), as_tensor(np.asarray(obs_cam, np.int32), device), f32(obs_uv))
+
+
+def pose_graph_from_numpy(rot, trans, edge_i, edge_j, edge_rot, edge_trans, device: DeviceLike = None):
+    """A pose graph's arrays (the JAX package's ``PoseGraph`` fields) as the
+    port's ``slam.pose_graph.PoseGraph``."""
+    f32 = lambda x: as_tensor(np.asarray(x, np.float32), device)
+    i32 = lambda x: as_tensor(np.asarray(x, np.int32), device)
+    return PoseGraph(f32(rot), f32(trans), i32(edge_i), i32(edge_j), f32(edge_rot), f32(edge_trans))
+
+
 def from_jax(obj, device: DeviceLike = None):
     """Converts one JAX-package object, by its class name, into the port's
     counterpart: a container (fields through numpy) or an option dataclass
@@ -129,6 +149,12 @@ def from_jax(obj, device: DeviceLike = None):
         return Matches.from_numpy(obj.index, obj.distance, obj.valid, device)
     if name == "Lines":
         return Lines.from_numpy(obj.endpoints, obj.valid, device)
+    if name == "BAProblem":
+        return ba_problem_from_numpy(*obj, device=device)
+    if name == "PoseGraph":
+        return pose_graph_from_numpy(*obj, device=device)
+    if name == "Pinhole":
+        return Pinhole(*(float(v) for v in obj))
     if name in _OPTION_CLASSES and dataclasses.is_dataclass(obj):
         return options_from_dict(_OPTION_CLASSES[name], dataclasses.asdict(obj))
     raise TypeError(f"no port counterpart for {name}")

@@ -64,14 +64,11 @@ def detect_good_features(
     Returns Features of capacity ``opts.max_features``: the existing prefix
     followed by the new picks.
     """
-    sub = _default_sub(kind) if sub is None else sub
     image = as_tensor(image, device)
     capacity = opts.max_features
     if existing.capacity != capacity:
         raise ValueError(f"existing capacity {existing.capacity} != opts.max_features {capacity}")
-
-    mask = K.make_suppression_mask(image.shape, existing.uv, existing.valid, opts.min_feature_distance)
-    cand, raw_resp = _candidate_map(image, mask, kind, opts, sub)
+    cand, raw_resp = detection_maps(image, existing, kind, opts, sub)
 
     n_stop = torch.clamp(needed_num - existing.count, min=0).to(torch.int32).reshape(1)
     # A zero budget returns no new features (documented divergence from the
@@ -81,6 +78,16 @@ def detect_good_features(
     if opts.subpixel:
         new_uv = K.subpixel_refine(raw_resp, new_uv, new_valid)
     return append_after_existing(existing, new_uv, new_resp, new_valid)
+
+
+def detection_maps(image: torch.Tensor, existing: Features, kind: str, opts: DetectorOptions = DetectorOptions(),
+                   sub=None):
+    """The maps ``detect_good_features`` computes before its greedy
+    selection: (candidate map [H, W] f32, raw response for the subpixel
+    fit), with the existing features' squares suppressed."""
+    sub = _default_sub(kind) if sub is None else sub
+    mask = K.make_suppression_mask(image.shape, existing.uv, existing.valid, opts.min_feature_distance)
+    return _candidate_map(image, mask, kind, opts, sub)
 
 
 def append_after_existing(existing: Features, new_uv, new_resp, new_valid) -> Features:

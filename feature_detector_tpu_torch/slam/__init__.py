@@ -1,0 +1,9 @@
+"""SLAM back-end of the PyTorch/CUDA port: Lie groups, two-view geometry,
+PnP, bundle adjustment, pose graph, trajectory IO and evaluation, the scan
+front-end and the fused chunked visual odometry.
+
+Counterpart of ``feature_detector_tpu/slam`` on one device; the JAX
+package's multi-device parts (``make_distributed_ba`` and the VO's ``mesh``
+argument) are not ported yet.  Functions take tensors with leading batch
+dimensions where the JAX package vmaps.
+"""

@@ -286,3 +286,100 @@ def test_match_float_on_card_equals_cpu(cuda, kw):
     assert torch.equal(out["cuda"][0], out["cpu"][0]) and torch.equal(out["cuda"][2], out["cpu"][2])
     assert torch.allclose(out["cuda"][1], out["cpu"][1], atol=2e-6, rtol=0)
     assert int(out["cpu"][2].sum()) >= 50
+
+
+# --------------------------------------------------------------------------
+# The fused chunked VO (slam/)
+# --------------------------------------------------------------------------
+
+VO_BA_POSE_ATOL = 1e-4  # global BA (solved in float64), card against CPU: rotations, centers / span
+VO_BA_POINT_ATOL = 1e-3  # points / span
+
+
+def _vo_sequence(n_frames):
+    from feature_detector_tpu_torch.slam.sequence import make_synthetic_sequence
+
+    return make_synthetic_sequence(n_frames=n_frames, n_landmarks=300, seed=3, motion="lateral", angle_step=0.03)
+
+
+def _harris_near_threshold(image, uv, thr, rel=1e-4):
+    """Whether each (x, y) of ``uv`` sits on a pixel of ``image`` whose raw
+    Harris response is within ``rel`` of the threshold ``thr``."""
+    from feature_detector_tpu_torch.core.config import HarrisOptions
+    from feature_detector_tpu_torch.kernels.detect import harris_response_raw
+
+    raw = harris_response_raw(torch.from_numpy(image).to(torch.float32), HarrisOptions()).numpy()
+    x = np.clip(uv[:, 0].astype(np.int64), 0, image.shape[1] - 1)
+    y = np.clip(uv[:, 1].astype(np.int64), 0, image.shape[0] - 1)
+    return np.abs(raw[y, x] - thr) <= rel * thr
+
+
+def test_scan_frontend_on_card_equals_cpu(cuda):
+    """Features, words, validity and carry links equal; a difference is
+    allowed only at a feature whose Harris response sits at the threshold,
+    and then the later frames (fed by the carry step) are not compared."""
+    from feature_detector_tpu_torch.core.config import BriefOptions
+    from feature_detector_tpu_torch.slam.sequence import scan_frontend
+
+    seq = _vo_sequence(6)
+    det = DetectorOptions(min_feature_distance=10, min_valid_response=20.0, max_features=256, subpixel=True)
+    out = {}
+    for dev in ("cpu", cuda):
+        f, w, v, l = scan_frontend(torch.from_numpy(seq.images).to(dev), "harris", 200, det, BriefOptions(upright=True))
+        out[str(dev)] = [t.cpu().numpy() for t in (f.uv, f.response, f.valid, w, v)] + [l.cpu().numpy()]
+    card, cpu = out["cuda"], out["cpu"]
+    for fr in range(len(seq.images)):
+        differ = ((card[0][fr] != cpu[0][fr]).any(-1) | (card[1][fr] != cpu[1][fr]) | (card[2][fr] != cpu[2][fr])
+                  | (card[3][fr] != cpu[3][fr]).any(-1) | (card[4][fr] != cpu[4][fr]))
+        if fr > 0:
+            differ |= card[5][fr - 1] != cpu[5][fr - 1]
+        if differ.any():
+            uv = np.concatenate([card[0][fr][differ], cpu[0][fr][differ]])
+            assert _harris_near_threshold(seq.images[fr], uv, det.min_valid_response).all()
+            break
+    assert int(cpu[2].sum()) == 6 * 200
+
+
+@pytest.fixture(scope="module")
+def vo13_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from feature_detector_tpu_torch.slam.sequence import run_visual_odometry_chunked
+
+    seq = _vo_sequence(13)
+    greedy_select.launches = 0
+    res = run_visual_odometry_chunked(torch.from_numpy(seq.images).cuda(), seq.cam)
+    torch.cuda.synchronize()
+    return seq, res, greedy_select.launches
+
+
+def test_vo_on_card_within_3pct_of_span(vo13_on_card):
+    from feature_detector_tpu_torch.slam.evaluate import ate_rmse
+
+    seq, res, _ = vo13_on_card
+    pos = res.trajectory.positions
+    assert pos.shape == (13, 3) and np.isfinite(pos).all()
+    span = float(np.linalg.norm(np.ptp(seq.trajectory.positions, 0)))
+    assert float(ate_rmse(pos, seq.trajectory.positions, with_scale=True)) < 0.03 * span
+
+
+def test_vo_launches_k2_twice_a_frame(vo13_on_card):
+    assert vo13_on_card[2] == 2 * 13
+
+
+def test_global_ba_on_card_equals_cpu(vo13_on_card):
+    import inspect
+
+    from feature_detector_tpu_torch.slam.ba import BAProblem, ba_solve
+    from feature_detector_tpu_torch.slam.vo_fused import run_visual_odometry_fused
+
+    seq, res, _ = vo13_on_card
+    opts = inspect.signature(run_visual_odometry_fused).parameters["ba_opts"].default
+    card = ba_solve(res.problem, seq.cam, opts)
+    cpu = ba_solve(BAProblem(*[x.cpu() for x in res.problem]), seq.cam, opts)
+    span = float(np.linalg.norm(np.ptp(seq.trajectory.positions, 0)))
+    centers = lambda p: -torch.einsum("fji,fj->fi", p.rot.cpu(), p.trans.cpu())
+    assert float((card.rot.cpu() - cpu.rot).abs().max()) <= VO_BA_POSE_ATOL
+    assert float((centers(card) - centers(cpu)).abs().max()) <= VO_BA_POSE_ATOL * span
+    has = (res.problem.obs_cam.cpu() >= 0).sum(1) >= 2
+    assert float((card.points.cpu() - cpu.points)[has].abs().max()) <= VO_BA_POINT_ATOL * span

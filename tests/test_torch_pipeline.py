@@ -148,7 +148,12 @@ def test_port_imports_no_jax():
         "feature_detector_tpu_torch.frontend.line_detector, feature_detector_tpu_torch.models.weights, "
         "feature_detector_tpu_torch.models.superpoint, feature_detector_tpu_torch.models.disk, "
         "feature_detector_tpu_torch.frontend.nn_detector, feature_detector_tpu_torch.match.float_matcher, "
-        "feature_detector_tpu_torch.kernels.nn_ops, "
+        "feature_detector_tpu_torch.kernels.nn_ops, feature_detector_tpu_torch.utils.log, "
+        "feature_detector_tpu_torch.slam.lie, feature_detector_tpu_torch.slam.linalg3, "
+        "feature_detector_tpu_torch.slam.camera, feature_detector_tpu_torch.slam.evaluate, "
+        "feature_detector_tpu_torch.slam.geometry, feature_detector_tpu_torch.slam.pose_graph, "
+        "feature_detector_tpu_torch.slam.ba, feature_detector_tpu_torch.slam.sequence, "
+        "feature_detector_tpu_torch.slam.vo_fused, "
         "chip_smoke, tests.test_torch_gpu\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'feature_detector_tpu')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
