@@ -20,8 +20,14 @@ counters that each path went through its kernels, checks the outputs
 against the port's CPU run (the NN post-processing fed the card's maps; the
 bfloat16 forward the path runs, and a float32 forward with TF32 off, each
 against the CPU's; the VO's scan front-end over 8 frames and its global BA
-problem), checks the VO's ATE, and times it all with CUDA events (each
-kernel's own device time also with torch.profiler).
+problem), checks the VO's ATE, compares the card's chunk solutions with the
+CPU's on the same chunk problems, and times it all with CUDA events (each
+kernel's own device time also with torch.profiler).  Then the multi-device
+paths on an NCCL world of one (phase ``multi``): the frame-parallel
+front-end and two-frame matcher on the main path's frames, the row-sharded
+Harris response, the distributed BA on the VO's global problem (dense and
+camera-sharded) and the VO over the mesh, each held against the one-device
+result, with the greedy launches counted.
 
 One JSON line per phase.  Before the last line: one JSON object describing
 every kernel, then the card's name and power limit as nvidia-smi gives them.
@@ -69,6 +75,18 @@ VO_HARRIS_REL = 1e-4  # a feature whose Harris response is within this of the th
 VO_BA_POSE_ATOL = 1e-4  # global BA (solved in float64) on the card against the CPU: rotations, centers / span
 VO_BA_POINT_ATOL = 1e-3  # the same for points, relative to the span
 VO_TOP_KERNELS = 8
+# The card's chunk solutions against the CPU's on the same chunk problems and draws, per chunk up to its
+# monocular scale: rotations, and camera centers and points over the chunk's largest center distance.
+VO_CHUNK_ROT_ATOL, VO_CHUNK_CENTER_ATOL, VO_CHUNK_POINT_ATOL = 1e-3, 1e-3, 1e-2
+# Multi phase, world of one: the distributed BA against ba_solve on the card (rotations in rad, centers and
+# points over the span).  Dense: the global BA's card-against-CPU tolerances (each all-reduce of a world of
+# one is the identity, so equality is expected).  Camera-sharded: 64 CG iterations a LM step stop short of
+# the dense solve, and for a few landmarks the consensus gate then keeps other observations, which moves
+# those points far; so the cameras, the median point, the share of points within 1e-2 of the span and the
+# cost (at most 10% above ba_solve's) are held.
+MULTI_BA_DENSE_ATOL = {"rot": VO_BA_POSE_ATOL, "center": VO_BA_POSE_ATOL, "point": VO_BA_POINT_ATOL}
+MULTI_BA_CG_TOL = {"rot": 1e-2, "center": 1e-2, "point_median": 1e-3, "points_within_1e-2": 0.95, "cost": 0.1}
+MULTI_VO_POS_ATOL = 1e-4  # the VO over a mesh of one against phase vo's run, positions over the span
 
 
 def emit(phase: str, **fields) -> None:
@@ -479,8 +497,9 @@ def vo_phase(torch, dev, smi):
     ATE, a profiler run (busy share, top kernels), the scan front-end on the
     card against the CPU's, K2 against its plain version on the VO's own
     candidate maps, the global BA problem solved on the card and on the CPU,
-    and the RANSAC draws on both.  Emits one JSON line and returns K2's
-    VO-path numbers."""
+    the chunk solutions on both, and the RANSAC draws on both.  Emits one
+    JSON line and returns K2's VO-path numbers and what phase ``multi``
+    holds its VO and BA against."""
     import inspect
 
     from torch.profiler import ProfilerActivity, profile
@@ -622,6 +641,10 @@ def vo_phase(torch, dev, smi):
     ba_ok = (ba_err["rot_max_abs_err"] <= VO_BA_POSE_ATOL and ba_err["center_max_abs_err_over_span"] <= VO_BA_POSE_ATOL
              and ba_err["point_max_abs_err_over_span"] <= VO_BA_POINT_ATOL)
 
+    # The card's chunk solutions against the CPU's: the chunk problems of the
+    # card's own front-end, solved on both with the same draws.
+    chunk_cmp = vo_chunks_card_vs_cpu(torch, dev, seq, imgs)
+
     # The RANSAC draws: CPU generator, copied to the card.
     draws_equal = all(torch.equal(geometry.ransac_gumbel(0, r, n, dev).cpu(), geometry.ransac_gumbel(0, r, n, "cpu"))
                       for r, n in ((48, det.max_features), (64, 512)))
@@ -640,13 +663,258 @@ def vo_phase(torch, dev, smi):
          frontend_excused_near_threshold=excused, frontend_first_differing_frame=first_diff,
          k2_exact_on_vo_maps=list(VO_K2_FRAMES), global_ba_card_vs_cpu=ba_err,
          global_ba_tolerance={"pose": VO_BA_POSE_ATOL, "point": VO_BA_POINT_ATOL}, global_ba_card_s=card_ba_s,
-         global_ba_cpu_s=cpu_ba_s, ransac_draws_equal=draws_equal)
+         global_ba_cpu_s=cpu_ba_s, ransac_draws_equal=draws_equal, chunks_card_vs_cpu=chunk_cmp)
     check(ba_ok, f"global BA on the card differs from the CPU's: {ba_err}")
     check(draws_equal, "RANSAC draws differ between the card and the CPU")
-    return {"launches": launches, "max_abs_err": k2_err, "ms": float(np.mean(k2_ms)),
-            "device_ms": float(np.mean(k2_dev_ms)), "plain_ms": float(np.mean(k2_plain_ms)),
-            "bound_ms": greedy_bound_ms(1, int(seq.images.shape[1]), int(seq.images.shape[2]), 200),
-            "maps": [f"frame {f}" for f in VO_K2_FRAMES]}
+    k2 = {"launches": launches, "max_abs_err": k2_err, "ms": float(np.mean(k2_ms)),
+          "device_ms": float(np.mean(k2_dev_ms)), "plain_ms": float(np.mean(k2_plain_ms)),
+          "bound_ms": greedy_bound_ms(1, int(seq.images.shape[1]), int(seq.images.shape[2]), 200),
+          "maps": [f"frame {f}" for f in VO_K2_FRAMES]}
+    run = {"seq": seq, "imgs": imgs, "result": res, "ate_m": ate, "span_m": span, "ba_opts": ba_opts,
+           "global_ba_card": card_ba, "frames_per_s_wall": VO_FRAMES / mean("wall_s")}
+    return k2, run
+
+
+def vo_chunks_card_vs_cpu(torch, dev, seq, imgs) -> dict:
+    """The fused VO's chunk problems, from the card's scan front-end, solved
+    by ``solve_chunks`` on the card and on the CPU (the same RANSAC draws:
+    CPU generator).  Per chunk: has_pt, ok and the chosen init pair equal,
+    and the largest differences of rotations, camera centers and points,
+    the last two over the chunk's largest center distance (each solution
+    is up to its monocular scale), and each solution's ATE against the
+    ground truth over the chunk's span.  A measurement of where the card's
+    run and the CPU's part, not a check: the chunk solver runs in float32,
+    and a few chunks of this sequence sit between two basins."""
+    import inspect
+
+    from feature_detector_tpu_torch.core.config import DetectorOptions
+    from feature_detector_tpu_torch.slam.evaluate import ate_rmse
+    from feature_detector_tpu_torch.slam.sequence import build_tracks_conflict_free, scan_frontend
+    from feature_detector_tpu_torch.slam.vo_fused import (
+        chunk_problems,
+        chunk_starts,
+        match_and_gate,
+        match_offsets_for,
+        run_visual_odometry_fused,
+        solve_chunks,
+    )
+
+    d = {k: v.default for k, v in inspect.signature(run_visual_odometry_fused).parameters.items()}
+    det = DetectorOptions(min_feature_distance=10, min_valid_response=20.0, max_features=256, subpixel=True)
+    n = len(seq.images)
+    feats, words, dvalid, links = scan_frontend(imgs, d["detector_kind"], d["needed_features"], det,
+                                                d["brief_opts"])
+    uv_np = feats.uv.cpu().numpy()
+    pairs = match_and_gate(words, dvalid, uv_np, feats.valid.cpu().numpy(), links.cpu().numpy(), seq.cam,
+                           d["match_opts"], match_offsets_for(n))
+    tracks = build_tracks_conflict_free(pairs, n, det.max_features)
+    starts = chunk_starts(n, d["chunk"], d["overlap"])
+    track_uv, track_has = chunk_problems(tracks, uv_np, starts, d["chunk"], d["max_tracks_per_chunk"])
+    args = (seq.cam, d["min_corr"], d["n_rounds"], d["chunk_ba_opts"], d["gate_px"])
+    t0 = time.perf_counter()
+    card = [x.cpu().numpy() for x in solve_chunks(torch.from_numpy(track_uv).to(dev),
+                                                  torch.from_numpy(track_has).to(dev), *args)]
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = [x.numpy() for x in solve_chunks(torch.from_numpy(track_uv), torch.from_numpy(track_has), *args)]
+    cpu_s = time.perf_counter() - t0
+    centers = lambda r, t: -np.einsum("kfji,kfj->kfi", r, t)
+    cc, pc = centers(card[0], card[1]), centers(cpu[0], cpu[1])
+    per_chunk = []
+    for k in range(len(track_uv)):
+        sc, sp = np.linalg.norm(cc[k], axis=1).max(), np.linalg.norm(pc[k], axis=1).max()
+        hp = cpu[3][k] & card[3][k]
+        rot = float(np.abs(card[0][k] - cpu[0][k]).max())
+        cen = float(np.abs(cc[k] / sc - pc[k] / sp).max())
+        pts = float(np.abs(card[2][k][hp] / sc - cpu[2][k][hp] / sp).max()) if hp.any() else 0.0
+        same = bool((card[3][k] == cpu[3][k]).all() and card[4][k] == cpu[4][k] and card[5][k] == cpu[5][k])
+        within = same and rot <= VO_CHUNK_ROT_ATOL and cen <= VO_CHUNK_CENTER_ATOL and pts <= VO_CHUNK_POINT_ATOL
+        # Each solution's own error: Sim(3)-aligned RMSE of its centers against the ground truth, over the
+        # chunk's span.
+        gt = seq.trajectory.positions[starts[k]:starts[k] + d["chunk"]]
+        gt_span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+        ate = lambda c: float(ate_rmse(c, gt, with_scale=True)) / gt_span
+        per_chunk.append({"chunk": k, "same_points_ok_init_pair": same, "rot": rot, "center_over_scale": cen,
+                          "point_over_scale": pts, "within": within, "card_ate_over_span": ate(cc[k]),
+                          "cpu_ate_over_span": ate(pc[k])})
+    return {"chunks": len(per_chunk), "within": sum(c["within"] for c in per_chunk),
+            "tolerance": {"rot": VO_CHUNK_ROT_ATOL, "center": VO_CHUNK_CENTER_ATOL, "point": VO_CHUNK_POINT_ATOL},
+            "card_solve_s": card_s, "cpu_solve_s": cpu_s, "per_chunk": per_chunk}
+
+
+def multi_phase(torch, dev, smi, main: dict, vo: dict):
+    """The multi-device paths on an NCCL world of one, started in this
+    process: the frame-parallel front-end and two-frame matcher on the main
+    path's frames (K1, counted), the row-sharded Harris response on one
+    frame, the distributed BA on the VO's global problem (dense and
+    camera-sharded), and the VO over the mesh (K2, counted), each held
+    against the one-device result of the phases before; K1 and K2 against
+    their plain version on this path's maps.  Emits one JSON line and
+    returns K1's and K2's numbers on this path."""
+    import torch.distributed as dist
+
+    from feature_detector_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(device="cuda")  # no process group yet: a world of one over NCCL
+    try:
+        return _multi_paths(torch, dev, smi, mesh, main, vo, t_phase)
+    finally:
+        dist.destroy_process_group()
+
+
+def _multi_paths(torch, dev, smi, mesh, main: dict, vo: dict, t_phase: float):
+    import torch.distributed as dist
+
+    from feature_detector_tpu_torch.core.config import BAOptions, DetectorOptions
+    from feature_detector_tpu_torch.core.types import Features
+    from feature_detector_tpu_torch.frontend.detector import detection_maps
+    from feature_detector_tpu_torch.kernels.detect import (
+        fast_candidates,
+        fast_response,
+        greedy_select_ref,
+        harris_response,
+    )
+    from feature_detector_tpu_torch.kernels.greedy import greedy_select
+    from feature_detector_tpu_torch.parallel.frontend import (
+        make_batched_frontend,
+        make_row_sharded_response,
+        make_two_frame_matcher,
+    )
+    from feature_detector_tpu_torch.parallel.mesh import make_mesh, shard_leading
+    from feature_detector_tpu_torch.slam.ba import make_distributed_ba, reprojection_cost
+    from feature_detector_tpu_torch.slam.evaluate import ate_rmse
+    from feature_detector_tpu_torch.slam.sequence import run_visual_odometry_chunked
+
+    backend, world = dist.get_backend(), dist.get_world_size()
+    check(backend == "nccl" and world == 1, f"multi phase: a {backend} world of {world}, not NCCL of one")
+    ja, jb, opts, bopts, mopts = main["ja"], main["jb"], main["opts"], main["bopts"], main["mopts"]
+    picks = opts.max_features
+    out = {"card": smi, "backend": backend, "world": world}
+
+    # Frame-parallel detect + describe (K1, counted), against the main path's batch on the card.
+    frontend = make_batched_frontend(mesh, "fast", picks, opts, brief_opts=bopts)
+    torch.cuda.synchronize()
+    greedy_select.launches = 0
+    feats, words, dvalid = frontend(ja)
+    torch.cuda.synchronize()
+    k1_frontend = greedy_select.launches
+    check(k1_frontend == 2, f"batched front-end launched the greedy kernels {k1_frontend} times, not 2")
+    fa, da = main["fa"], main["da"]
+    check(all(torch.equal(g, w) for g, w in ((feats.uv, fa.uv), (feats.response, fa.response), (feats.valid, fa.valid),
+                                           (words, da.words), (dvalid, da.valid))),
+          "batched front-end over the mesh differs from the main path's batch")
+    out["batched_frontend_ms"] = cuda_ms(torch, lambda: frontend(ja), 5)
+
+    # Two-frame matcher (K1, counted): features and matches equal to the main path's.
+    matcher = make_two_frame_matcher(mesh, "fast", picks, opts, brief_opts=bopts, matcher_opts=mopts)
+    torch.cuda.synchronize()
+    greedy_select.launches = 0
+    ma_f, mb_f, mm = matcher(ja, jb)
+    torch.cuda.synchronize()
+    k1_matcher = greedy_select.launches
+    check(k1_matcher == 4, f"two-frame matcher launched the greedy kernels {k1_matcher} times, not 2 x 2")
+    m, fb = main["m"], main["fb"]
+    check(torch.equal(ma_f.uv, fa.uv) and torch.equal(mb_f.uv, fb.uv) and torch.equal(mb_f.valid, fb.valid),
+          "two-frame matcher's features differ from the main path's")
+    check(all(torch.equal(getattr(mm, k), getattr(m, k)) for k in ("index", "distance", "valid")),
+          "two-frame matcher's matches differ from the main path's")
+    out["two_frame_matcher_ms"] = cuda_ms(torch, lambda: matcher(ja, jb), 5)
+    out["matches_per_pair"] = float(mm.valid.sum(1).float().mean())
+
+    # K1 against its plain version on this path's maps (this rank's block; not counted).
+    ones = torch.ones(ja.shape[1:], dtype=torch.int32, device=dev)
+    cand = fast_candidates(fast_response(shard_leading(ja, mesh, "data"), ones), opts.min_valid_response)
+    got = greedy_select(cand, picks, picks, opts.min_feature_distance)
+    torch.cuda.synchronize()
+    want = greedy_select_ref(cand, picks, picks, opts.min_feature_distance)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "K1 != plain on the batched front-end's maps")
+    k1_err = max_abs_err(torch, got, want)
+
+    # Row-sharded Harris on one frame against the whole-frame response.
+    space = make_mesh((1,), ("space",), device="cuda")
+    ropts = DetectorOptions(min_valid_response=30.0)
+    rows = make_row_sharded_response(space, "harris", ropts)
+    frame, fmask = ja[0], torch.ones(ja.shape[1:], dtype=torch.int32, device=dev)
+    check(torch.equal(rows(frame, fmask), harris_response(frame, fmask, ropts)),
+          "row-sharded Harris differs from harris_response")
+    out["row_sharded_harris_ms"] = cuda_ms(torch, lambda: rows(frame, fmask), 20)
+    out["harris_response_ms"] = cuda_ms(torch, lambda: harris_response(frame, fmask, ropts), 20)
+
+    # The distributed BA on the VO's global problem against ba_solve on the card.
+    seq, prob, ba_opts, span = vo["seq"], vo["result"].problem, vo["ba_opts"], vo["span_m"]
+    card_ba = vo["global_ba_card"]
+    centers = lambda p: -torch.einsum("fji,fj->fi", p.rot, p.trans)
+    has = (prob.obs_cam >= 0).sum(1) >= 2
+    cost = lambda p: float(reprojection_cost(p, seq.cam, BAOptions(huber_delta=1e9)))
+    ba = {}
+    for form, solver in (("dense", make_distributed_ba(mesh, seq.cam, ba_opts)),
+                         ("camera_shard", make_distributed_ba(mesh, seq.cam, ba_opts, camera_shard=True))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = solver(prob)
+        torch.cuda.synchronize()
+        point_err = (sol.points - card_ba.points)[has].norm(dim=1) / span
+        ba[form] = {"seconds": time.perf_counter() - t0,
+                    "rot_max_abs_err": float((sol.rot - card_ba.rot).abs().max()),
+                    "center_max_abs_err_over_span": float((centers(sol) - centers(card_ba)).abs().max()) / span,
+                    "point_max_err_over_span": float(point_err.max()),
+                    "point_median_err_over_span": float(point_err.median()),
+                    "points_within_1e-2_of_span": float((point_err <= 1e-2).float().mean()),
+                    "cost": cost(sol), "cost_ba_solve": cost(card_ba)}
+    dense, cg = ba["dense"], ba["camera_shard"]
+    ba["tolerance"] = {"dense": MULTI_BA_DENSE_ATOL, "camera_shard": MULTI_BA_CG_TOL}
+    out["global_ba"] = ba
+    check(dense["rot_max_abs_err"] <= MULTI_BA_DENSE_ATOL["rot"]
+          and dense["center_max_abs_err_over_span"] <= MULTI_BA_DENSE_ATOL["center"]
+          and dense["point_max_err_over_span"] <= MULTI_BA_DENSE_ATOL["point"],
+          f"distributed BA (dense) differs from ba_solve on the card: {dense}")
+    check(cg["rot_max_abs_err"] <= MULTI_BA_CG_TOL["rot"]
+          and cg["center_max_abs_err_over_span"] <= MULTI_BA_CG_TOL["center"]
+          and cg["point_median_err_over_span"] <= MULTI_BA_CG_TOL["point_median"]
+          and cg["points_within_1e-2_of_span"] >= MULTI_BA_CG_TOL["points_within_1e-2"]
+          and cg["cost"] <= (1 + MULTI_BA_CG_TOL["cost"]) * cg["cost_ba_solve"],
+          f"distributed BA (camera-sharded) parts from ba_solve on the card: {cg}")
+
+    # The VO over the mesh (K2, counted) against phase vo's run.
+    imgs = vo["imgs"]
+    torch.cuda.synchronize()
+    greedy_select.launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    res = run_visual_odometry_chunked(imgs, seq.cam, mesh=mesh)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    k2_vo = greedy_select.launches
+    check(k2_vo == 2 * VO_FRAMES, f"VO over the mesh launched the greedy kernels {k2_vo} times, not 2 x {VO_FRAMES}")
+    pos, want_pos = res.trajectory.positions, vo["result"].trajectory.positions
+    check(pos.shape == want_pos.shape and bool(np.isfinite(pos).all()), "VO over the mesh: finite, one pose a frame")
+    gt = seq.trajectory.positions
+    ate = float(ate_rmse(pos, gt, with_scale=True))
+    pos_err = float(np.abs(pos - want_pos).max()) / span
+    out["vo"] = {"frames_per_s_wall": VO_FRAMES / wall_s,
+                 "frames_per_s_events": VO_FRAMES / (start.elapsed_time(end) / 1e3),
+                 "phase_vo_frames_per_s_wall": vo["frames_per_s_wall"], "ate_m": ate, "phase_vo_ate_m": vo["ate_m"],
+                 "ate_share_of_span": ate / span, "position_max_abs_err_over_span": pos_err,
+                 "tolerance_over_span": MULTI_VO_POS_ATOL, "greedy_launches": k2_vo}
+    check(pos_err <= MULTI_VO_POS_ATOL, f"VO over the mesh parts from phase vo's run by {pos_err} of the span")
+    check(f"{ate:.4f}" == f"{vo['ate_m']:.4f}", f"VO over the mesh: ATE {ate:.4f} m, phase vo {vo['ate_m']:.4f} m")
+
+    # K2 against its plain version on the VO's first top-up map (not counted).
+    det = DetectorOptions(min_feature_distance=10, min_valid_response=20.0, max_features=256, subpixel=True)
+    cand2, _ = detection_maps(imgs[0], Features.empty(det.max_features, dev), "harris", det)
+    got = greedy_select(cand2, 200, 200, det.min_feature_distance)
+    torch.cuda.synchronize()
+    want = greedy_select_ref(cand2, 200, 200, det.min_feature_distance)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "K2 != plain on the VO's frame-0 map")
+    k2_err = max_abs_err(torch, got, want)
+
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("multi", greedy_launches_batched_frontend=k1_frontend, greedy_launches_two_frame_matcher=k1_matcher, **out)
+    return ({"launches_batched_frontend": k1_frontend, "launches_two_frame_matcher": k1_matcher, "max_abs_err": k1_err},
+            {"launches_vo_over_mesh": k2_vo, "max_abs_err": k2_err})
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -894,20 +1162,24 @@ def main() -> int:
 
     lsd_kernel = lsd_phase(torch, dev, scenes, smi)
     nn_k2 = nn_phase(torch, dev, smi)
-    vo_k2 = vo_phase(torch, dev, smi)
+    vo_k2, vo_run = vo_phase(torch, dev, smi)
+    multi_k1, multi_k2 = multi_phase(
+        torch, dev, smi, {"ja": ja, "jb": jb, "opts": opts, "bopts": bopts, "mopts": mopts, "fa": fa, "fb": fb,
+                          "da": da, "m": m}, vo_run)
 
     kernels = [
         {"name": "greedy_select (batch)", "route": "cuda", "source": SOURCE,
          "replaces": "feature_detector_tpu/kernels/greedy_pallas.py:145",
          "launches": batch_launches, "max_abs_err": errs[BATCH],
          "ms": times["greedy_ms_b64"], "device_ms": times["greedy_device_ms_b64"], "plain_ms": times["greedy_plain_ms_b64"],
-         "bound_ms": greedy_bound_ms(BATCH, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None},
+         "bound_ms": greedy_bound_ms(BATCH, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None,
+         "multi_path": multi_k1},
         {"name": "greedy_select (single frame)", "route": "cuda", "source": SOURCE,
          "replaces": "feature_detector_tpu/kernels/greedy_pallas.py:35",
          "launches": single_launches, "max_abs_err": errs[1],
          "ms": times["greedy_ms_b1"], "device_ms": times["greedy_device_ms_b1"], "plain_ms": times["greedy_plain_ms_b1"],
          "bound_ms": greedy_bound_ms(1, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None,
-         "nn_path": nn_k2, "vo_path": vo_k2},
+         "nn_path": nn_k2, "vo_path": vo_k2, "multi_path": multi_k2},
         lsd_kernel,
     ]
     emit("done", seconds=time.perf_counter() - t_start)

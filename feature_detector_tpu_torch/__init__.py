@@ -4,7 +4,8 @@ A second package beside the JAX reference ``feature_detector_tpu``: the same
 public names, argument order and layouts, written in PyTorch, with each of
 the reference's Pallas TPU kernels on the ported path replaced by a
 hand-written CUDA kernel (``kernels/csrc``); ``slam/`` holds the SLAM
-back-end and the fused chunked visual odometry.  It imports neither JAX nor
+back-end and the fused chunked visual odometry, ``parallel/`` multi-device
+execution on ``torch.distributed``.  It imports neither JAX nor
 the JAX package.  Entry points run on ``cuda`` unless handed CPU tensors or
 ``device="cpu"``.
 """

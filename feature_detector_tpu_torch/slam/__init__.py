@@ -2,8 +2,8 @@
 PnP, bundle adjustment, pose graph, trajectory IO and evaluation, the scan
 front-end and the fused chunked visual odometry.
 
-Counterpart of ``feature_detector_tpu/slam`` on one device; the JAX
-package's multi-device parts (``make_distributed_ba`` and the VO's ``mesh``
-argument) are not ported yet.  Functions take tensors with leading batch
+Counterpart of ``feature_detector_tpu/slam``, with the multi-device BA
+(``ba.make_distributed_ba``) and the VO's ``mesh`` argument on
+``torch.distributed``.  Functions take tensors with leading batch
 dimensions where the JAX package vmaps.
 """

@@ -21,8 +21,10 @@ called directly (the chunk solver) runs in float32 with one step of
 iterative refinement of each solve, as the JAX package does there.  The
 VO entry refuses TF32 matmuls on the card.
 
-Not ported yet: the multi-device solver (``make_distributed_ba``, the
-camera-sharded CG, ``_gauge_damp_rows``).
+``make_distributed_ba`` is the multi-device solver: landmarks split over a
+mesh axis, one all-reduce of the reduced camera system and the cost per LM
+iteration, or with ``camera_shard`` the system's rows reduce-scattered and
+solved by distributed conjugate gradients.  It solves in float64 too.
 """
 
 from __future__ import annotations
@@ -31,8 +33,11 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..core.config import BAOptions
+from ..core.device import as_tensor
+from ..parallel.mesh import axis_group, axis_index, axis_size, gather_leading, mesh_device, shard_leading
 from .camera import Pinhole, huber_weight, project, projection_jacobian
 from .geometry import solve
 from .lie import eye3, hat, rotate, se3_update
@@ -417,3 +422,187 @@ def _ba_solve_impl(problem: BAProblem, cam: Pinhole, opts: BAOptions, num_fixed:
             rot, trans, points = run_round(rot, trans, points, obs_w, gn_opts)
     return problem._replace(rot=rot.to(out_dtype), trans=trans.to(out_dtype), points=points.to(out_dtype),
                             obs_uv=problem.obs_uv.to(out_dtype))
+
+
+# --------------------------------------------------------------------------
+# Multi-device solver
+# --------------------------------------------------------------------------
+
+
+def _gauge_damp_rows(S_rows, b_rows, row0: int, n6: int, lam, n_fixed: int):
+    """Gauge fix and LM damping on a row block of the reduced camera system.
+
+    The arithmetic of ``_solve_and_update`` (the first ``n_fixed`` cameras'
+    rows and columns become identity, diagonal times (1 + lam) plus 1e-6)
+    on rows ``row0 ...`` only, so the system can stay reduce-scattered.
+    ``S_rows`` is [rows, n6p], both axes padded to the rank multiple n6p;
+    a padding row (global index >= n6) gets a unit diagonal, so the Jacobi
+    preconditioner stays finite and CG leaves its component at 0.
+    Returns (S_rows, b_rows, diagonal).
+    """
+    rows, cols = S_rows.shape
+    k = 6 * n_fixed
+    col_idx = torch.arange(cols, device=S_rows.device)
+    row_idx = row0 + torch.arange(rows, device=S_rows.device)
+    fixed_r, pad_r = row_idx < k, row_idx >= n6
+    S0 = torch.where(fixed_r[:, None] | (col_idx < k)[None, :] | pad_r[:, None], 0.0, S_rows)
+    is_diag = col_idx[None, :] == row_idx[:, None]
+    diag = torch.where(fixed_r | pad_r, 1.0, (S0 * is_diag).sum(1)) * (1.0 + lam) + 1e-6
+    return torch.where(is_diag, diag[:, None], S0), torch.where(fixed_r | pad_r, 0.0, b_rows), diag
+
+
+def _cg_solve_sharded(S_rows, b_rows, diag_rows, mesh, axis: str, iters: int):
+    """Jacobi-preconditioned CG on the row-sharded reduced system.
+
+    Each rank holds a row block; the matvec is the local [rows, n6p] @
+    [n6p] product and one all-gather, the only collective of an iteration.
+    Every scalar comes from replicated vectors, so all ranks walk the same
+    iterates.  Runs exactly ``iters`` iterations; returns x [n6p].
+    """
+    gather = lambda v: gather_leading(v, mesh, axis)
+    b = gather(b_rows)
+    m_inv = 1.0 / gather(diag_rows)
+    x = torch.zeros_like(b)
+    r = b
+    z = m_inv * r
+    p = z
+    rz = torch.dot(r, z)
+    for _ in range(iters):
+        ap = gather(S_rows @ p)
+        alpha = rz / torch.clamp_min(torch.dot(p, ap), 1e-20)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = m_inv * r
+        rz_new = torch.dot(r, z)
+        p = z + rz_new / torch.clamp_min(rz, 1e-20) * p
+        rz = rz_new
+    return x
+
+
+def make_distributed_ba(mesh, cam: Pinhole, opts: BAOptions = BAOptions(), axis: str = "data",
+                        camera_shard: bool = False, cg_iterations: int = 64):
+    """Landmark-sharded bundle adjustment over the ``axis`` ranks of a mesh.
+
+    Every rank passes the whole problem and gets the whole solution back
+    (poses replicated, points gathered), solved in float64 and returned in
+    float32 like ``ba_solve``.  Landmarks pad to a multiple of the axis with
+    empty observations.  Each rank eliminates its landmarks; the reduced
+    camera system, its right-hand side and the cost go through ONE
+    all-reduce per LM iteration, and the accepted state's system is carried,
+    so a rejected step costs no collective.  The MAD gates read the global
+    residual distribution (an all-gather of one norm per observation); the
+    consensus re-landmarking is local to each landmark's rank.
+
+    ``camera_shard=True``: the reduced system's rows (both axes padded to
+    the rank multiple) are reduce-scattered instead, and the camera step is
+    ``cg_iterations`` of distributed Jacobi-preconditioned CG, so no rank
+    holds the whole system.  For camera counts in the hundreds; the dense
+    path is exact and faster for small windows.
+
+    Returns fn(problem) -> problem.
+    """
+    n_dev = axis_size(mesh, axis)
+    group = axis_group(mesh, axis)
+
+    def all_sum(x):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        return x
+
+    def run(problem: BAProblem) -> BAProblem:
+        dev = mesh_device(mesh)
+        check_no_tf32(dev)
+        problem = BAProblem(*(as_tensor(x, dev) for x in problem))
+        out_dtype = problem.rot.dtype
+        f64 = lambda x: x.to(torch.float64)
+        L = problem.points.shape[0]
+        rot, trans = f64(problem.rot), f64(problem.trans)
+        points = shard_leading(f64(problem.points), mesh, axis, 0.0)
+        obs_cam = shard_leading(problem.obs_cam, mesh, axis, -1)
+        obs_uv = shard_leading(f64(problem.obs_uv), mesh, axis, 0.0)
+        n_cams = rot.shape[0]
+        n6 = 6 * n_cams
+        n_fixed = max(1, min(opts.num_fixed_cameras, n_cams))
+        damping = lambda ropts: torch.tensor(ropts.damping, dtype=torch.float64, device=dev)
+
+        def step_lam(accept, lam, ropts):
+            return torch.clamp(torch.where(accept, lam * ropts.damping_down, lam * ropts.damping_up), 1e-9, 1e3)
+
+        def lm_round_dense(rot, trans, points, obs_w, ropts):
+            def assemble(rot, trans, points):
+                S, b, hpp_inv, bp, wmat, valid, cam_idx = _assemble(rot, trans, points, obs_cam, obs_uv, cam, ropts,
+                                                                    n_cams, obs_w)
+                cost = _cost(rot, trans, points, obs_cam, obs_uv, cam, ropts, obs_w)
+                packed = all_sum(torch.cat([S.reshape(-1), b, cost.reshape(1)]))
+                return packed[:n6 * n6].reshape(n6, n6), packed[n6 * n6:-1], (hpp_inv, bp, wmat, valid, cam_idx), \
+                    packed[-1]
+
+            S, b, aux, cost = assemble(rot, trans, points)
+            lam = damping(ropts)
+            for _ in range(ropts.max_iterations):
+                rot2, trans2, points2, _ = _solve_and_update(rot, trans, points, S, b, *aux, ropts, lam, n_fixed)
+                S2, b2, aux2, cost2 = assemble(rot2, trans2, points2)
+                accept = cost2 < cost
+                pick = lambda new, old: torch.where(accept, new, old)
+                rot, trans, points = pick(rot2, rot), pick(trans2, trans), pick(points2, points)
+                S, b = pick(S2, S), pick(b2, b)
+                aux = tuple(pick(x2, x) for x2, x in zip(aux2, aux))
+                lam = step_lam(accept, lam, ropts)
+                cost = pick(cost2, cost)
+            return rot, trans, points
+
+        def lm_round_cg(rot, trans, points, obs_w, ropts):
+            n6p = -(-n6 // n_dev) * n_dev
+            rows = n6p // n_dev
+            row0 = axis_index(mesh, axis) * rows
+
+            def cost_of(rot, trans, points):
+                return all_sum(_cost(rot, trans, points, obs_cam, obs_uv, cam, ropts, obs_w).reshape(1))[0]
+
+            cost = cost_of(rot, trans, points)
+            lam = damping(ropts)
+            for _ in range(ropts.max_iterations):
+                S, b, hpp_inv, bp, wmat, valid, cam_idx = _assemble(rot, trans, points, obs_cam, obs_uv, cam, ropts,
+                                                                    n_cams, obs_w)
+                system = torch.zeros((n6p, n6p + 1), dtype=S.dtype, device=dev)
+                system[:n6, :n6] = S
+                system[:n6, n6p] = b
+                local = torch.empty((rows, n6p + 1), dtype=S.dtype, device=dev)
+                dist.reduce_scatter(local, list(system.chunk(n_dev)), op=dist.ReduceOp.SUM, group=group)
+                S_loc, b_loc, diag = _gauge_damp_rows(local[:, :n6p], local[:, n6p], row0, n6, lam, n_fixed)
+                dx = _cg_solve_sharded(S_loc, b_loc, diag, mesh, axis, cg_iterations)
+                rot2, trans2, points2 = _apply_dx(rot, trans, points, dx[:n6].reshape(n_cams, 6), hpp_inv, bp, wmat,
+                                                  valid, cam_idx, False)
+                cost2 = cost_of(rot2, trans2, points2)
+                accept = cost2 < cost
+                pick = lambda new, old: torch.where(accept, new, old)
+                rot, trans, points = pick(rot2, rot), pick(trans2, trans), pick(points2, points)
+                lam = step_lam(accept, lam, ropts)
+                cost = pick(cost2, cost)
+            return rot, trans, points
+
+        lm_round = lm_round_cg if camera_shard else lm_round_dense
+
+        def global_cutoff(rot, trans, points, obs_w):
+            # The MAD cutoff over every rank's residual norms.
+            rn, valid = _residual_norms(rot, trans, points, obs_cam, obs_uv, cam)
+            mask = valid & (obs_w > 0)
+            return rn, _mad_cutoff(gather_leading(rn, mesh, axis), gather_leading(mask, mesh, axis), opts.mad_clip)
+
+        def run_round(rot, trans, points, obs_w, ropts):
+            if opts.gate_px > 0 and opts.mad_clip > 0:
+                rn, cutoff = global_cutoff(rot, trans, points, obs_w)
+                obs_w = obs_w * (rn <= cutoff + 1e-3).to(torch.float32)
+            return lm_round(rot, trans, points, obs_w, ropts)
+
+        gn_opts = dataclasses.replace(opts, huber_delta=1e12)
+        obs_w = torch.ones(obs_cam.shape, dtype=torch.float32, device=dev)
+        rot, trans, points = run_round(rot, trans, points, obs_w, opts)
+        if opts.gate_px > 0:
+            for _ in range(opts.gate_rounds):
+                gate = torch.clamp_min(global_cutoff(rot, trans, points, obs_w)[1], opts.gate_px)
+                points, obs_w = _relandmark(rot, trans, points, obs_cam, obs_uv, cam, gate)
+                rot, trans, points = run_round(rot, trans, points, obs_w, gn_opts)
+        points = gather_leading(points, mesh, axis)[:L]
+        return problem._replace(rot=rot.to(out_dtype), trans=trans.to(out_dtype), points=points.to(out_dtype))
+
+    return run

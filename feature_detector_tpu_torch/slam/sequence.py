@@ -14,6 +14,8 @@ greedy selection is the CUDA kernel (K2) on the card.
 
 Not ported yet: the legacy short-window VO (``run_visual_odometry``,
 ``legacy=True``) and the host-sequential ``run_incremental_frontend``.
+``mesh`` passes through to the fused path, which splits its chunk solves
+and global BA over the mesh's ranks.
 """
 
 from __future__ import annotations
@@ -507,8 +509,9 @@ def run_visual_odometry_chunked(
     ``vo_fused.run_visual_odometry_fused`` (scan front-end, global track
     graph, all chunk solves as one batch, Sim(3) composition, pose graph,
     global BA).  Runs on ``device`` (``cuda`` by default; ``"cpu"`` on the
-    CPU).  Keyword arguments the fused path does not take are ignored with
-    a warning.  ``legacy=True`` (the short-window sequential VO) is not
+    CPU), or with ``mesh=`` on every rank of a mesh (chunk solves and the
+    global BA split across ranks, see ``vo_fused``).  Keyword arguments the
+    fused path does not take are ignored with a warning.  ``legacy=True`` (the short-window sequential VO) is not
     ported yet and raises.
     """
     if legacy:

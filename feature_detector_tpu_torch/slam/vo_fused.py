@@ -1,4 +1,4 @@
-"""Fused chunked visual odometry on one device.
+"""Fused chunked visual odometry, on one device or over a mesh.
 
 Counterpart of ``feature_detector_tpu/slam/vo_fused.py``:
 
@@ -23,8 +23,14 @@ in float32 with one refinement step, the global BA in float64; products
 never run in TF32 (the entry refuses it).  The RANSAC draws come from a CPU
 ``torch.Generator`` (``geometry.ransac_gumbel``), the same on every device.
 
-Not ported yet: the ``mesh`` argument (chunks and the global BA over a
-device mesh).
+With ``mesh`` (a ``DeviceMesh``, one rank per device) the chunk batch
+splits over the mesh's first axis, padded with empty chunk problems to a
+multiple of it, each rank solving its contiguous block and the solutions
+all-gathered; the global BA runs landmark-sharded
+(``ba.make_distributed_ba``).  Every other stage runs replicated on every
+rank, the same on each: the RANSAC draws come from the CPU generator, and
+the chunk solver takes one set of draws for all chunks, so a rank's block
+sees the draws the whole batch would.
 """
 
 from __future__ import annotations
@@ -38,9 +44,10 @@ import torch
 from ..core.config import BAOptions, BriefOptions, DetectorOptions, MatcherOptions
 from ..core.device import DeviceLike, as_tensor
 from ..match.hamming import match_hamming
+from ..parallel.mesh import gather_leading, mesh_device, shard_leading
 from ..utils.log import report_warn
 from . import geometry
-from .ba import BAProblem, _ba_solve_impl, _poses_per_obs, ba_solve, check_no_tf32
+from .ba import BAProblem, _ba_solve_impl, _poses_per_obs, ba_solve, check_no_tf32, make_distributed_ba
 from .camera import Pinhole
 from .lie import eye3, rotate, so3_exp, so3_log
 from .linalg3 import solve3
@@ -181,6 +188,20 @@ def solve_chunks(track_uv, track_has, cam: Pinhole, min_corr: int, n_rounds: int
     rots, trans, pts, has_pt = (torch.where(pick_a.reshape(K, *([1] * (x.dim() - 2))), x[:, 0], x[:, 1])
                                 for x in (rots, trans, pts, has_pt))
     return rots, trans, pts, has_pt, chunk_ok, torch.where(pick_a, j_a, j_b)
+
+
+def solve_chunk_batch(track_uv, track_has, cam: Pinhole, min_corr: int, n_rounds: int, ba_opts: BAOptions,
+                      gate_px: float, mesh=None):
+    """``solve_chunks`` over the whole batch, or with ``mesh`` over the
+    ranks of its first axis: the K chunks pad to a multiple of the axis with
+    empty problems (no tracks: their init fails), each rank solves its
+    contiguous block, and the blocks are all-gathered and cut back to K."""
+    if mesh is None:
+        return solve_chunks(track_uv, track_has, cam, min_corr, n_rounds, ba_opts, gate_px)
+    axis = mesh.mesh_dim_names[0]
+    out = solve_chunks(shard_leading(track_uv, mesh, axis, 0.0), shard_leading(track_has, mesh, axis, False), cam,
+                       min_corr, n_rounds, ba_opts, gate_px)
+    return tuple(gather_leading(x, mesh, axis)[:track_uv.shape[0]] for x in out)
 
 
 # --------------------------------------------------------------------------
@@ -431,16 +452,23 @@ def run_visual_odometry_fused(
     pose_graph: bool = True,
     global_ba: bool = True,
     match_offsets: Optional[Tuple[int, ...]] = None,
+    mesh=None,
     device: DeviceLike = None,
     stage_seconds: Optional[dict] = None,
 ) -> VOResult:
     """Fused chunked VO (see the module docstring); returns a VOResult
     covering every input frame.  Runs on ``device`` (``cuda`` unless
     ``images`` is a CPU tensor or ``device="cpu"``); raises without a card.
-    ``stage_seconds``, when given, receives each stage's host seconds (every
-    stage ends by copying its result to the host)."""
+    With ``mesh``, every rank calls this with the same arguments, runs on
+    its own device and returns the same result.  ``stage_seconds``, when
+    given, receives each stage's host seconds (every stage ends by copying
+    its result to the host)."""
+    if mesh is not None and device is None:
+        device = mesh_device(mesh)
     imgs = as_tensor(images, device)
     dev = imgs.device
+    if mesh is not None and dev != mesh_device(mesh):
+        raise ValueError(f"images on {dev}, but this rank's mesh device is {mesh_device(mesh)}")
     check_no_tf32(dev)
     t_mark = [time.perf_counter()]
 
@@ -480,8 +508,9 @@ def run_visual_odometry_fused(
     starts = chunk_starts(n, chunk, overlap)
     K = len(starts)
     track_uv_k, track_has_k = chunk_problems(tracks, uv_np, starts, chunk, max_tracks_per_chunk)
-    c_rots, c_trans, c_pts, c_haspt, c_ok, _ = solve_chunks(
-        as_tensor(track_uv_k, dev), as_tensor(track_has_k, dev), cam, min_corr, n_rounds, chunk_ba_opts, gate_px)
+    c_rots, c_trans, c_pts, c_haspt, c_ok, _ = solve_chunk_batch(
+        as_tensor(track_uv_k, dev), as_tensor(track_has_k, dev), cam, min_corr, n_rounds, chunk_ba_opts, gate_px,
+        mesh)
     c_rots = c_rots.cpu().numpy()
     c_trans = c_trans.cpu().numpy()
     c_pts = c_pts.cpu().numpy()
@@ -599,6 +628,10 @@ def run_visual_odometry_fused(
     problem = solved = None
     good = [tr for tr in tracks if len(tr) >= 2]
     if global_ba and good:
+        if mesh is None:
+            solve_ba = lambda p: ba_solve(p, cam, ba_opts)
+        else:
+            solve_ba = make_distributed_ba(mesh, cam, ba_opts)
         obs_cam_np, obs_uv_np = global_observations(good, uv_np, max_track_obs)
         oc = as_tensor(obs_cam_np, dev)
         ouv = as_tensor(obs_uv_np, dev)
@@ -606,14 +639,13 @@ def run_visual_odometry_fused(
         t0 = as_tensor(np.ascontiguousarray(trans_g, np.float32), dev)
         pts0, obs_ok, _ = midpoint_triangulate(r0, t0, oc, ouv, cam, 4.0 * gate_px)
         problem = BAProblem(rot=r0, trans=t0, points=pts0, obs_cam=torch.where(obs_ok, oc, -1), obs_uv=ouv)
-        solved = ba_solve(problem, cam, ba_opts)
+        solved = solve_ba(problem)
         # PnP re-registration of every frame against the adjusted map, then
         # re-triangulation and a final solve.
         pts1, ok1, hp1 = midpoint_triangulate(solved.rot, solved.trans, oc, ouv, cam, 4.0 * gate_px)
         r_p, t_p = _global_pnp(solved.rot, solved.trans, pts1, hp1, torch.where(ok1, oc, -1), ouv, cam, gate_px)
         pts2, ok2, has_pt = midpoint_triangulate(r_p, t_p, oc, ouv, cam, 4.0 * gate_px)
-        solved = ba_solve(problem._replace(rot=r_p, trans=t_p, points=pts2, obs_cam=torch.where(ok2, oc, -1)), cam,
-                          ba_opts)
+        solved = solve_ba(problem._replace(rot=r_p, trans=t_p, points=pts2, obs_cam=torch.where(ok2, oc, -1)))
         r_s = solved.rot.cpu().numpy()
         t_s = solved.trans.cpu().numpy()
         p_s = solved.points.cpu().numpy()

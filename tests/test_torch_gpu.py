@@ -383,3 +383,85 @@ def test_global_ba_on_card_equals_cpu(vo13_on_card):
     assert float((centers(card) - centers(cpu)).abs().max()) <= VO_BA_POSE_ATOL * span
     has = (res.problem.obs_cam.cpu() >= 0).sum(1) >= 2
     assert float((card.points.cpu() - cpu.points)[has].abs().max()) <= VO_BA_POINT_ATOL * span
+
+
+# --------------------------------------------------------------------------
+# Multi-device paths (parallel/, make_distributed_ba, the VO's mesh) on an
+# NCCL world of one, started in this process
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from feature_detector_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_batched_frontend_world_of_one_equals_batch(card_mesh):
+    from feature_detector_tpu_torch.kernels.brief import brief_compute
+    from feature_detector_tpu_torch.parallel.frontend import make_batched_frontend
+
+    frames = torch.from_numpy(np.stack([scene_uint8(synth_scene(np.random.default_rng(s), 120, 160, True)[0])
+                                        for s in range(4)])).cuda()
+    opts = DetectorOptions(min_feature_distance=10, min_valid_response=10.0, max_features=64)
+    greedy_select.launches = 0
+    feats, words, dvalid = make_batched_frontend(card_mesh, "fast", 40, opts)(frames)
+    torch.cuda.synchronize()
+    assert greedy_select.launches == 2  # one batched selection: K1's two launches
+    want = detect_good_features_batch(frames, "fast", 40, opts)
+    want_w, want_v = brief_compute(frames, want.uv, want.valid)
+    for got, ref in ((feats.uv, want.uv), (feats.valid, want.valid), (words, want_w), (dvalid, want_v)):
+        assert torch.equal(got, ref)
+    assert int(feats.valid.sum()) > 20
+
+
+def test_row_sharded_response_world_of_one_equals_whole(card_mesh):
+    from feature_detector_tpu_torch.kernels.detect import harris_response
+    from feature_detector_tpu_torch.parallel.frontend import make_row_sharded_response
+    from feature_detector_tpu_torch.parallel.mesh import make_mesh
+
+    space = make_mesh((1,), ("space",), device="cuda")
+    image = torch.from_numpy(scene_uint8(synth_scene(np.random.default_rng(9), 240, 320, True)[0])).cuda()
+    mask = torch.ones(image.shape, dtype=torch.int32, device="cuda")
+    opts = DetectorOptions(min_valid_response=30.0)
+    got = make_row_sharded_response(space, "harris", opts)(image, mask)
+    assert torch.equal(got, harris_response(image, mask, opts))
+
+
+def test_distributed_ba_world_of_one_on_card(card_mesh, vo13_on_card):
+    """Dense: equal to ba_solve bit for bit (each all-reduce of a world of
+    one is the identity).  Camera-sharded CG: the same cost within 1%."""
+    import inspect
+
+    from feature_detector_tpu_torch.core.config import BAOptions
+    from feature_detector_tpu_torch.slam.ba import ba_solve, make_distributed_ba, reprojection_cost
+    from feature_detector_tpu_torch.slam.vo_fused import run_visual_odometry_fused
+
+    seq, res, _ = vo13_on_card
+    opts = inspect.signature(run_visual_odometry_fused).parameters["ba_opts"].default
+    want = ba_solve(res.problem, seq.cam, opts)
+    got = make_distributed_ba(card_mesh, seq.cam, opts)(res.problem)
+    for f in ("rot", "trans", "points"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    cg = make_distributed_ba(card_mesh, seq.cam, opts, camera_shard=True)(res.problem)
+    cost = lambda p: float(reprojection_cost(p, seq.cam, BAOptions(huber_delta=1e9)))
+    assert abs(cost(cg) - cost(want)) <= 1e-2 * cost(want)
+
+
+def test_vo_over_a_mesh_of_one_equals_one_device(card_mesh, vo13_on_card):
+    from feature_detector_tpu_torch.slam.sequence import run_visual_odometry_chunked
+
+    seq, res, _ = vo13_on_card
+    greedy_select.launches = 0
+    got = run_visual_odometry_chunked(torch.from_numpy(seq.images).cuda(), seq.cam, mesh=card_mesh)
+    torch.cuda.synchronize()
+    assert greedy_select.launches == 2 * 13
+    np.testing.assert_array_equal(got.trajectory.positions, res.trajectory.positions)

@@ -153,7 +153,9 @@ def test_port_imports_no_jax():
         "feature_detector_tpu_torch.slam.camera, feature_detector_tpu_torch.slam.evaluate, "
         "feature_detector_tpu_torch.slam.geometry, feature_detector_tpu_torch.slam.pose_graph, "
         "feature_detector_tpu_torch.slam.ba, feature_detector_tpu_torch.slam.sequence, "
-        "feature_detector_tpu_torch.slam.vo_fused, "
+        "feature_detector_tpu_torch.slam.vo_fused, feature_detector_tpu_torch.parallel.distributed, "
+        "feature_detector_tpu_torch.parallel.mesh, feature_detector_tpu_torch.parallel.halo, "
+        "feature_detector_tpu_torch.parallel.frontend, tests.torch_dist_worker, "
         "chip_smoke, tests.test_torch_gpu\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'feature_detector_tpu')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
