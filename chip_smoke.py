@@ -27,7 +27,15 @@ paths on an NCCL world of one (phase ``multi``): the frame-parallel
 front-end and two-frame matcher on the main path's frames, the row-sharded
 Harris response, the distributed BA on the VO's global problem (dense and
 camera-sharded) and the VO over the mesh, each held against the one-device
-result, with the greedy launches counted.
+result, with the greedy launches counted.  Then training (phase ``train``):
+SuperPoint (batch 32, 120x160) and DISK (batch 16, 128x160) for 22 bfloat16
+steps each on ``make_batch`` batches (rendered in worker processes), timed by CUDA events and profiled, each first held in float32
+against the CPU's step; the trained SuperPoint through the npz format into
+``NNFeaturePointDetector.detect`` (greedy launches counted); a data-parallel
+step on an NCCL world of one against the one-device step, bit for bit; a
+``ResilientLoop`` that rolls back an injected NaN.  Last the demos (phase
+``demo``): ``app/demo.py``'s five demos on synthetic scenes, their PNGs read
+back, the greedy and flood launches counted.
 
 One JSON line per phase.  Before the last line: one JSON object describing
 every kernel, then the card's name and power limit as nvidia-smi gives them.
@@ -49,6 +57,7 @@ BATCH, ROWS, COLS, PICKS, RADIUS = 64, 480, 752, 200, 20
 SCENES = 8  # 8 scenes x 8 row shifts = 64 frames
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 SOURCE = "feature_detector_tpu_torch/kernels/csrc/greedy.cu"
 LSD_SOURCE = "feature_detector_tpu_torch/kernels/csrc/lsd_flood.cu"
 LSD_BUDGET = 100
@@ -87,6 +96,25 @@ VO_CHUNK_ROT_ATOL, VO_CHUNK_CENTER_ATOL, VO_CHUNK_POINT_ATOL = 1e-3, 1e-3, 1e-2
 MULTI_BA_DENSE_ATOL = {"rot": VO_BA_POSE_ATOL, "center": VO_BA_POSE_ATOL, "point": VO_BA_POINT_ATOL}
 MULTI_BA_CG_TOL = {"rot": 1e-2, "center": 1e-2, "point_median": 1e-3, "points_within_1e-2": 0.95, "cost": 0.1}
 MULTI_VO_POS_ATOL = 1e-4  # the VO over a mesh of one against phase vo's run, positions over the span
+# Train phase: the widths of the JAX package's train() defaults (train_superpoint.py:192, train_disk.py:127).
+TRAIN_MODELS = {
+    "superpoint": {"batch": 32, "rows": 120, "cols": 160, "rich_background": False},
+    "disk": {"batch": 16, "rows": 128, "cols": 160, "rich_background": True},
+}
+TRAIN_STEPS, TRAIN_WARMUP = 20, 2
+TRAIN_SEED = 0
+TRAIN_LR = 1e-3
+TRAIN_CHECK_FRAMES = 4  # the float32 card-vs-CPU first step runs on the first frames of the first batch
+TRAIN_LOSS_RTOL = 1e-5  # tests/test_torch_train.py
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-4, 1e-6  # tests/test_torch_train.py, per element; on a norm: + atol sqrt(n)
+TRAIN_ZERO_GRAD_SHARE = 1e-4  # a gradient that is 0 in exact arithmetic, against the total gradient norm
+TRAIN_TOP_KERNELS = 6
+RESILIENT_STEPS, RESILIENT_SAVE_EVERY, RESILIENT_NAN_STEP = 6, 2, 3
+# Demo phase: 2 greedy launches per detect call (points: 3 kinds x warm-up and timed call + 2 incremental calls).
+DEMO_SEED = 40
+DEMO_VO_FRAMES = 30
+DEMO_K2 = {"points": 16, "descriptor": 4, "lines": 0, "nn": 4, "vo": 2 * DEMO_VO_FRAMES}
+DEMO_PNGS = 14
 
 
 def emit(phase: str, **fields) -> None:
@@ -917,6 +945,337 @@ def _multi_paths(torch, dev, smi, mesh, main: dict, vo: dict, t_phase: float):
             {"launches_vo_over_mesh": k2_vo, "max_abs_err": k2_err})
 
 
+def _render_batch(job):
+    """One training batch (``make_batch``), in a worker process: job =
+    (model index, batch index, batch, rows, cols, rich background)."""
+    from feature_detector_tpu_torch.models.synth_data import make_batch
+
+    k, i, batch, rows, cols, rich = job
+    return make_batch(np.random.default_rng([TRAIN_SEED, k, i]), batch, rows, cols, rich_background=rich)
+
+
+def render_training_batches() -> dict:
+    """TRAIN_WARMUP + TRAIN_STEPS batches per model, rendered by a pool of
+    worker processes (the host's numpy rendering takes about 20 s of one
+    core).  The pool runs inside phase ``train`` alone, so that it takes no
+    host time from the earlier phases' measurements."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    jobs = [(k, i, cfg["batch"], cfg["rows"], cfg["cols"], cfg["rich_background"])
+            for k, cfg in enumerate(TRAIN_MODELS.values()) for i in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    with ProcessPoolExecutor(min(8, os.cpu_count() or 1), mp_context=multiprocessing.get_context("spawn")) as pool:
+        out = list(pool.map(_render_batch, jobs))
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    return {name: out[k * n:(k + 1) * n] for k, name in enumerate(TRAIN_MODELS)}
+
+
+def conv_step_flop(torch, model, batch: int, channels: int, rows: int, cols: int) -> float:
+    """Floating-point operations of the convolutions in one training step:
+    the forward of both frames of ``batch`` samples (2 x in_channels x
+    kernel area per output element, counted by forward hooks), times 3 for
+    the backward's input and weight gradients."""
+    total = [0]
+
+    def hook(mod, inp, out):
+        total[0] += 2 * out.numel() * mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model(torch.zeros((batch, channels, rows, cols), device=next(model.parameters()).device))
+    finally:
+        for h in handles:
+            h.remove()
+    return 3.0 * 2 * total[0]
+
+
+def train_model(torch, dev, name: str, batches: list) -> tuple:
+    """One model of phase ``train``: the float32 first step on the card
+    against the CPU's, then TRAIN_WARMUP + TRAIN_STEPS bfloat16 steps
+    timed by CUDA events, and one profiled step.  Returns (its JSON fields,
+    the trained model)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from feature_detector_tpu_torch.models import train_disk, train_superpoint
+    from feature_detector_tpu_torch.models.disk import Disk, normalised_biases
+    from feature_detector_tpu_torch.models.superpoint import SuperPoint
+    from feature_detector_tpu_torch.models.weights import init_state
+
+    cls, module = {"superpoint": (SuperPoint, train_superpoint), "disk": (Disk, train_disk)}[name]
+    cfg = TRAIN_MODELS[name]
+
+    # The float32 first step on the card (TF32 off) and on the CPU: same parameters, same frames.
+    check_batch = {k: v[:TRAIN_CHECK_FRAMES] for k, v in batches[0].items()}
+    f32 = {}
+    for where, device in (("cpu", "cpu"), ("card", dev)):
+        m = init_state(cls(dtype=torch.float32), torch.Generator().manual_seed(TRAIN_SEED)).to(device)
+        loss, aux = module.make_train_step(m, train_superpoint.adam(m, TRAIN_LR))(check_batch)
+        f32[where] = {"loss": float(loss), "det": float(aux["det"]), "desc": float(aux["desc"]),
+                      "grad_norms": {n: float(p.grad.norm()) for n, p in m.named_parameters()},
+                      "numel": {n: p.numel() for n, p in m.named_parameters()}}
+    zero = normalised_biases(m) if name == "disk" else set()
+    total = float(np.sqrt(sum(v * v for v in f32["cpu"]["grad_norms"].values())))
+    worst = {"loss_rel": 0.0, "grad_norm_excess": -1.0}
+    for key in ("loss", "det", "desc"):
+        rel = abs(f32["card"][key] - f32["cpu"][key]) / abs(f32["cpu"][key])
+        worst["loss_rel"] = max(worst["loss_rel"], rel)
+        check(rel <= TRAIN_LOSS_RTOL, f"{name}: the card's float32 {key} {f32['card'][key]} against the CPU's "
+              f"{f32['cpu'][key]}")
+    for n, want in f32["cpu"]["grad_norms"].items():
+        got = f32["card"]["grad_norms"][n]
+        if n in zero:
+            check(max(got, want) <= TRAIN_ZERO_GRAD_SHARE * total, f"{name}: {n}'s gradient is 0 in exact "
+                  f"arithmetic, read {got} (card) and {want} (CPU) against a total norm of {total}")
+            continue
+        tol = TRAIN_GRAD_RTOL * want + TRAIN_GRAD_ATOL * np.sqrt(f32["cpu"]["numel"][n])
+        worst["grad_norm_excess"] = max(worst["grad_norm_excess"], abs(got - want) - tol)
+        check(abs(got - want) <= tol, f"{name}: gradient norm of {n}: card {got}, CPU {want}")
+
+    # bfloat16 training, the JAX package's train() widths.
+    model = init_state(cls(dtype=torch.bfloat16), torch.Generator().manual_seed(TRAIN_SEED)).to(dev)
+    step = module.make_train_step(model, train_superpoint.adam(model, TRAIN_LR))
+    losses = [step(b)[0] for b in batches[:TRAIN_WARMUP]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    for b in batches[TRAIN_WARMUP:]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(b)[0])
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    losses = [float(x) for x in losses]
+    check(bool(np.isfinite(losses).all()), f"{name}: non-finite training loss {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last5 < first5, f"{name}: the mean of the last 5 losses {last5} is not below the first 5's {first5}")
+
+    # One step under the profiler: the kernels a step runs and the card's busy share.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        step(batches[-1])
+        end.record()
+        torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end)
+    per_kernel = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages() if e.device_time_total > 0}
+    busy_ms = sum(ms for ms, _ in per_kernel.values())
+    check(busy_ms > 0, f"{name}: the profiler saw no device time in a training step")
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TRAIN_TOP_KERNELS]
+    mean_ms = float(np.mean(step_ms))
+    flop = conv_step_flop(torch, model, cfg["batch"], 1 if name == "superpoint" else 3, cfg["rows"], cfg["cols"])
+    bound_ms = 1e3 * flop / PEAK_BF16_OPS_PER_S
+    fields = dict(device_busy_share_of_mean_step=busy_ms / mean_ms, step_conv_tflop=flop / 1e12,
+                  step_bound_ms=bound_ms, step_bound_by="operations", step_bound_share=bound_ms / mean_ms,model=name, batch=cfg["batch"], rows=cfg["rows"], cols=cfg["cols"], dtype="bfloat16",
+                  steps_timed=len(step_ms), warmup_steps=TRAIN_WARMUP, step_ms_mean=mean_ms,
+                  step_ms_median=float(np.median(step_ms)), step_ms_min=float(np.min(step_ms)),
+                  step_ms_max=float(np.max(step_ms)), samples_per_s=cfg["batch"] / (mean_ms / 1e3),
+                  peak_memory_mib=peak_mib, loss_first=losses[0], loss_last=losses[-1],
+                  loss_mean_first5=first5, loss_mean_last5=last5, losses=losses,
+                  profiled_step_event_ms=event_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / event_ms,
+                  kernels_per_step=sum(c for _, c in per_kernel.values()),
+                  top_kernels_ms=[[k[:90], ms, c] for k, (ms, c) in top],
+                  f32_check_frames=TRAIN_CHECK_FRAMES, f32_loss_card=f32["card"]["loss"], f32_loss_cpu=f32["cpu"]["loss"],
+                  f32_loss_max_rel_diff=worst["loss_rel"], f32_grad_norm_max_excess=worst["grad_norm_excess"],
+                  f32_zero_gradient_params=len(zero))
+    return fields, model
+
+
+def _dp_step(torch, dev, state: dict, batch: dict, mesh):
+    """One bfloat16 SuperPoint step from ``state`` with a fresh Adam, with or
+    without ``mesh``: (loss, det, desc, parameters, gradients)."""
+    from feature_detector_tpu_torch.models.superpoint import SuperPoint
+    from feature_detector_tpu_torch.models.train_superpoint import adam, make_train_step
+
+    m = SuperPoint(dtype=torch.bfloat16).to(dev)
+    m.load_state_dict(state)
+    loss, aux = make_train_step(m, adam(m, TRAIN_LR), mesh=mesh)(batch)
+    return ([loss, aux["det"], aux["desc"]], {n: p.detach().clone() for n, p in m.named_parameters()},
+            {n: p.grad.clone() for n, p in m.named_parameters()})
+
+
+def resilient_run(torch, dev, state: dict, batches: list, ckpt_dir: str) -> dict:
+    """A ResilientLoop of RESILIENT_STEPS SuperPoint steps whose step
+    RESILIENT_NAN_STEP, the first time, sees a frame of NaN: the window
+    turns non-finite, rolls back to its checkpoint and replays."""
+    import copy
+
+    from feature_detector_tpu_torch.models.superpoint import SuperPoint
+    from feature_detector_tpu_torch.models.train_superpoint import adam, make_train_step
+    from feature_detector_tpu_torch.utils.checkpoint import CheckpointManager
+    from feature_detector_tpu_torch.utils.recovery import ResilientLoop
+
+    model = SuperPoint(dtype=torch.bfloat16).to(dev)
+    model.load_state_dict(state)
+    opt = adam(model, TRAIN_LR)
+    step = make_train_step(model, opt)
+    poisoned = []
+
+    def step_fn(st, s):
+        model.load_state_dict(st["model"])
+        opt.load_state_dict(st["opt"])
+        b = batches[s % len(batches)]
+        if s == RESILIENT_NAN_STEP and not poisoned:
+            poisoned.append(s)
+            b = {**b, "image": np.full_like(b["image"], np.nan)}
+        step(b)
+        return {"model": {k: v.detach().clone() for k, v in model.state_dict().items()},
+                "opt": copy.deepcopy(opt.state_dict())}
+
+    init = {"model": {k: v.detach().clone() for k, v in model.state_dict().items()},
+            "opt": copy.deepcopy(opt.state_dict())}
+    loop = ResilientLoop(ckpt_dir, save_every=RESILIENT_SAVE_EVERY, max_retries=2)
+    t = time.perf_counter()
+    final = loop.run(init, step_fn, RESILIENT_STEPS)
+    seconds = time.perf_counter() - t
+    restored = CheckpointManager(ckpt_dir).restore(final)
+    check(poisoned == [RESILIENT_NAN_STEP] and loop.rollbacks == 1,
+          f"ResilientLoop: {loop.rollbacks} rollbacks for the NaN at step {RESILIENT_NAN_STEP}")
+    on_card = all(v.device.type == dev.type for v in (*restored["model"].values(), *final["model"].values()))
+    check(on_card, "ResilientLoop: restored tensors are not on the card")
+    check(all(bool(torch.isfinite(v).all()) for v in final["model"].values()), "ResilientLoop: non-finite result")
+    check(all(torch.equal(restored["model"][k], v) for k, v in final["model"].items()),
+          "ResilientLoop: the last checkpoint differs from the final state")
+    return {"steps": RESILIENT_STEPS, "save_every": RESILIENT_SAVE_EVERY, "nan_at_step": RESILIENT_NAN_STEP,
+            "rollbacks": loop.rollbacks, "restored_on": str(next(iter(restored["model"].values())).device),
+            "seconds": seconds}
+
+
+def train_phase(torch, dev, smi) -> dict:
+    """The training path on the card (phase ``train``): SuperPoint and DISK
+    at the JAX package's train() widths in bfloat16, each first held in
+    float32 against the CPU; the SuperPoint result saved as npz, loaded by
+    the serving path and run through ``NNFeaturePointDetector.detect`` (K2,
+    counted); one data-parallel step on an NCCL world of one against the
+    one-device step, bit for bit; a ResilientLoop that rolls back a NaN.
+    Emits one JSON line per model and one for the rest; returns K2's
+    numbers on this path."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from feature_detector_tpu_torch.core.config import NNDetectorOptions, NNModelType
+    from feature_detector_tpu_torch.core.convert import flax_tree_from_superpoint_state
+    from feature_detector_tpu_torch.frontend.nn_detector import NNFeaturePointDetector
+    from feature_detector_tpu_torch.kernels.greedy import greedy_select
+    from feature_detector_tpu_torch.models import weights
+    from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene
+    from feature_detector_tpu_torch.models.train_superpoint import save_params_npz
+    from feature_detector_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    batches = render_training_batches()
+    render_s = time.perf_counter() - t_phase
+    trained = {}
+    for name in TRAIN_MODELS:
+        fields, trained[name] = train_model(torch, dev, name, batches[name])
+        emit("train", card=smi, batch_render_s=render_s, **fields)
+    sp_state = {k: v.detach().clone() for k, v in trained["superpoint"].state_dict().items()}
+    del trained
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # The trained weights through the npz format into the serving path (K2, counted).
+        path = f"{tmp}/superpoint_trained.npz"
+        save_params_npz(path, flax_tree_from_superpoint_state(sp_state))
+        tree = weights.load_params_npz(path)
+        opts = NNDetectorOptions(max_image_rows=NN_ROWS, max_image_cols=NN_COLS,
+                                 model_type=NNModelType.SUPERPOINT_HEATMAP)
+        det = NNFeaturePointDetector(opts, device=dev)
+        det.initialize(params=tree)
+        scene = scene_uint8(synth_scene(np.random.default_rng(TRAIN_SEED), NN_ROWS, NN_COLS, rich_background=True)[0])
+        frame = torch.from_numpy(scene).to(dev)
+        greedy_select.launches = 0
+        feats, desc = det.detect(frame)
+        torch.cuda.synchronize()
+        detect_launches = greedy_select.launches
+        check(detect_launches == 2, f"detect on the trained weights launched greedy {detect_launches} times, not 2")
+        check(bool(torch.isfinite(feats.uv).all() and torch.isfinite(desc).all()), "detect on the trained weights")
+        n_feats = int(feats.count)
+
+        # One data-parallel step on an NCCL world of one against the one-device step, bit for bit.
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            mesh = make_mesh(device=dev.type)
+            try:
+                dp = _dp_step(torch, dev, sp_state, batches["superpoint"][0], mesh)
+            finally:
+                dist.destroy_process_group()
+            one = _dp_step(torch, dev, sp_state, batches["superpoint"][0], None)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        dp_equal = (all(torch.equal(a, b) for a, b in zip(dp[0], one[0]))
+                    and all(torch.equal(dp[i][k], one[i][k]) for i in (1, 2) for k in one[1]))
+        check(dp_equal, "make_train_step(mesh=...) on a world of one differs from the one-device step")
+
+        resilient = resilient_run(torch, dev, sp_state, batches["superpoint"], f"{tmp}/ckpt")
+    emit("train_tools", card=smi, trained_npz_detect={"greedy_launches": detect_launches, "features": n_feats,
+                                                     "rows": NN_ROWS, "cols": NN_COLS},
+         data_parallel_world_of_one_equal_bitwise=dp_equal, resilient_loop=resilient,
+         seconds=time.perf_counter() - t_phase)
+    return {"launches": detect_launches, "path": "NNFeaturePointDetector.detect on the freshly trained SuperPoint"}
+
+
+def demo_phase(torch, dev, smi) -> tuple:
+    """The demos on the card (phase ``demo``): ``demo_points``,
+    ``demo_descriptor`` and ``demo_lines`` on a synthetic 752x480 scene,
+    ``demo_nn`` on a 640x480 one and ``demo_vo`` on 30 frames, each writing
+    its PNGs to a temporary directory, with the K2 and K3 launches of each
+    counted.  Every PNG is read back (header and image data).  Emits one
+    JSON line; returns K2's and K3's numbers on this path."""
+    import os
+    import tempfile
+
+    from feature_detector_tpu_torch.app import demo
+    from feature_detector_tpu_torch.io.images import png_size
+    from feature_detector_tpu_torch.kernels.greedy import greedy_select
+    from feature_detector_tpu_torch.kernels.lsd_flood import propagate_running
+    from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene
+
+    t_phase = time.perf_counter()
+    img = scene_uint8(synth_scene(np.random.default_rng(DEMO_SEED), ROWS, COLS, rich_background=True)[0])
+    img2 = scene_uint8(synth_scene(np.random.default_rng(DEMO_SEED + 1), NN_ROWS, NN_COLS, rich_background=True)[0])
+    demos = {
+        "points": lambda out: demo.demo_points(img, out, dev),
+        "descriptor": lambda out: demo.demo_descriptor(img, out, dev),
+        "lines": lambda out: demo.demo_lines(img, out, dev),
+        "nn": lambda out: demo.demo_nn(img2, out, dev),
+        "vo": lambda out: demo.demo_vo(out, n_frames=DEMO_VO_FRAMES, device=dev),
+    }
+    results, k2, k3, seconds, pngs = {}, {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as out:
+        for name, fn in demos.items():
+            greedy_select.launches = 0
+            propagate_running.launches = 0
+            t = time.perf_counter()
+            results[name] = fn(out)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t
+            k2[name], k3[name] = greedy_select.launches, propagate_running.launches
+            for path in results[name]["written"]:
+                check(os.path.exists(path), f"demo {name} did not write {path}")
+                w, h, c = png_size(path)
+                check(w > 0 and h > 0 and c in (1, 3, 4), f"demo {name}: {path} reads as {w}x{h}x{c}")
+                pngs[os.path.basename(path)] = [w, h, c]
+    for name, want in DEMO_K2.items():
+        check(k2[name] == want, f"demo {name} launched greedy {k2[name]} times, not {want}")
+    check(k3["lines"] > 0 and k3["lines"] % 3 == 0, f"demo lines launched the flood {k3['lines']} times")
+    check(sum(k3.values()) == k3["lines"], f"the flood ran outside demo lines: {k3}")
+    check(len(pngs) == DEMO_PNGS, f"the demos wrote {len(pngs)} distinct PNGs, not {DEMO_PNGS}")
+    vo = results["vo"]
+    emit("demo", card=smi, rows=ROWS, cols=COLS, nn_rows=NN_ROWS, nn_cols=NN_COLS, vo_frames=DEMO_VO_FRAMES,
+         counts={k: r["counts"] for k, r in results.items()}, ms={k: r["ms"] for k, r in results.items()},
+         seconds=seconds, greedy_launches=k2, flood_launches=k3, pngs=pngs, vo_ate_m=vo["ate_m"],
+         vo_ate_share_of_span=vo["ate_m"] / vo["span_m"], phase_seconds=time.perf_counter() - t_phase)
+    return ({"launches": sum(k2.values()), "per_demo": k2},
+            {"launches": k3["lines"], "demo": "demo_lines"})
+
+
 def max_abs_err(torch, got, want) -> float:
     return max(float((g.to(torch.float32) - w.to(torch.float32)).abs().max()) for g, w in zip(got, want))
 
@@ -1166,6 +1525,9 @@ def main() -> int:
     multi_k1, multi_k2 = multi_phase(
         torch, dev, smi, {"ja": ja, "jb": jb, "opts": opts, "bopts": bopts, "mopts": mopts, "fa": fa, "fb": fb,
                           "da": da, "m": m}, vo_run)
+    train_k2 = train_phase(torch, dev, smi)
+    demo_k2, demo_k3 = demo_phase(torch, dev, smi)
+    lsd_kernel["demo_path"] = demo_k3
 
     kernels = [
         {"name": "greedy_select (batch)", "route": "cuda", "source": SOURCE,
@@ -1179,7 +1541,8 @@ def main() -> int:
          "launches": single_launches, "max_abs_err": errs[1],
          "ms": times["greedy_ms_b1"], "device_ms": times["greedy_device_ms_b1"], "plain_ms": times["greedy_plain_ms_b1"],
          "bound_ms": greedy_bound_ms(1, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None,
-         "nn_path": nn_k2, "vo_path": vo_k2, "multi_path": multi_k2},
+         "nn_path": nn_k2, "vo_path": vo_k2, "multi_path": multi_k2, "train_path": train_k2,
+         "demo_path": demo_k2},
         lsd_kernel,
     ]
     emit("done", seconds=time.perf_counter() - t_start)

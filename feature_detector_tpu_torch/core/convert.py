@@ -7,7 +7,9 @@ through ``np.asarray``, so the JAX objects may hold jax arrays or numpy
 arrays: this module never imports JAX.  The incremental re-detect path takes
 JAX-detected ``existing`` features through ``from_jax``; the NN models take
 their weights through ``superpoint_state_from_flax`` and
-``disk_state_from_flax`` (kernels HWIO -> OIHW); the SLAM tests hand the
+``disk_state_from_flax`` (kernels HWIO -> OIHW), and give them back, for
+saving, through ``flax_tree_from_superpoint_state`` and
+``flax_tree_from_disk_state``; the SLAM tests hand the
 JAX package's ``BAProblem``, ``PoseGraph`` and ``Pinhole`` over through
 ``from_jax`` too.
 """
@@ -119,6 +121,37 @@ def disk_state_from_flax(tree) -> dict:
         if "gate" in params[name]:
             state[f"{name}.gate.weight"] = torch.from_numpy(np.asarray(params[name]["gate"]["alpha"], np.float32).copy())
     return state
+
+
+def _conv_leaf(state, prefix: str) -> dict:
+    """The torch ``weight`` (OIHW) and ``bias`` of ``prefix`` as a Flax conv
+    leaf {kernel HWIO, bias} of float32 numpy arrays."""
+    weight = state[f"{prefix}.weight"].detach().to("cpu", torch.float32).numpy()
+    return {"kernel": np.ascontiguousarray(weight.transpose(2, 3, 1, 0)),
+            "bias": state[f"{prefix}.bias"].detach().to("cpu", torch.float32).numpy().copy()}
+
+
+def flax_tree_from_superpoint_state(state) -> dict:
+    """The inverse of ``superpoint_state_from_flax``: the port's
+    ``SuperPoint`` ``state_dict`` as the ``{"params": {...}}`` tree of
+    float32 numpy arrays (kernels HWIO) that the JAX model and
+    ``save_params_npz`` take."""
+    params = {}
+    for name in SUPERPOINT_LAYERS:
+        leaf = _conv_leaf(state, name)
+        params[name] = leaf if name in ("convPb", "convDb") else {"Conv_0": leaf}
+    return {"params": params}
+
+
+def flax_tree_from_disk_state(state) -> dict:
+    """The inverse of ``disk_state_from_flax``: the port's ``Disk``
+    ``state_dict`` as the JAX model's ``{"params": {...}}`` tree."""
+    params = {}
+    for name in DISK_BLOCKS:
+        params[name] = {"conv": _conv_leaf(state, f"{name}.conv")}
+        if f"{name}.gate.weight" in state:
+            params[name]["gate"] = {"alpha": state[f"{name}.gate.weight"].detach().to("cpu", torch.float32).numpy().copy()}
+    return {"params": params}
 
 
 def ba_problem_from_numpy(rot, trans, points, obs_cam, obs_uv, device: DeviceLike = None):

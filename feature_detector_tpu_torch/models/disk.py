@@ -116,6 +116,15 @@ class Disk(nn.Module):
         return torch.sigmoid(head[:, -1]), desc
 
 
+def normalised_biases(model: Disk) -> set:
+    """Names of the conv biases whose every consumer is an InstanceNorm: every
+    block's but the head's (the last up block).  The norm subtracts the
+    per-channel mean, so their exact gradient is 0 and a float32 gradient
+    there is rounding noise."""
+    head = f"up_{len(UP)}"
+    return {f"{name}.conv.bias" for name, m in model.named_children() if isinstance(m, ThinConv) and name != head}
+
+
 def preprocess_gray_rgb(image_u8: torch.Tensor) -> torch.Tensor:
     """``[H, W]`` uint8 -> ``[1, 3, H, W]`` float32 in [0, 1], gray
     replicated to RGB."""

@@ -38,7 +38,8 @@ _POOL_AFTER = ("conv1b", "conv2b", "conv3b")
 class Conv(nn.Conv2d):
     """A conv with float32 parameters computed in the input's dtype, "SAME"
     padding for odd kernels.  Built without drawing initial values:
-    parameters come from a loaded ``state_dict``."""
+    parameters come from a loaded ``state_dict``, or for training from
+    scratch from ``models.weights.init_state``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
@@ -63,7 +64,9 @@ class SuperPoint(nn.Module):
         self.convDa = conv(128, 256, 3)
         self.convDb = conv(256, DESC_DIM, 1)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, return_logits: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``return_logits``: the training output, the raw float32 65-way
+        cell logits ``[B, 65, H/8, W/8]`` in place of the heatmap."""
         if x.shape[-2] % 8 or x.shape[-1] % 8:
             raise ValueError(f"SuperPoint: H and W must be multiples of 8, got {tuple(x.shape[-2:])}")
         x = x.to(self.dtype)
@@ -73,6 +76,8 @@ class SuperPoint(nn.Module):
                 x = F.max_pool2d(x, 2)
         logits = self.convPb(F.relu(self.convPa(x))).float()
         desc = l2_normalise(self.convDb(F.relu(self.convDa(x))).float(), dim=1).permute(0, 2, 3, 1)
+        if return_logits:
+            return logits, desc
         # Drop the dustbin; cell channel k = 8i + j goes to pixel (8hc + i, 8wc + j).
         probs = torch.softmax(logits, dim=1)[:, : STRIDE * STRIDE]
         return F.pixel_shuffle(probs, STRIDE)[:, 0], desc

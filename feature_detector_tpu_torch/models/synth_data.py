@@ -6,6 +6,11 @@ without the JAX package.  Every generator returns ``(image [H, W] float32 in
 [0, 1], corners [N, 2] float32 (u, v))``; ``scene_uint8`` scales an image to
 uint8 as the tests of the JAX package do.  ``tile_edge_ties`` makes
 candidate maps for the seams of a tiled greedy-selection kernel.
+
+The training half (``random_homography``, ``apply_homography``,
+``cell_labels``, ``make_batch``) makes the batches of
+``models/train_superpoint.py`` and ``models/train_disk.py``: pure numpy, so
+the same ``np.random.Generator`` gives the JAX package's arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -172,3 +177,65 @@ def tile_edge_ties(rng: np.random.Generator, shape, tile: int, signed_frame: int
         m[signed_frame, :30] = -m[signed_frame, :30]
         m[signed_frame, 30:40] = -0.0
     return m
+
+
+def random_homography(rng: np.random.Generator, h: int, w: int,
+                      max_angle: float = 0.35, max_scale: float = 0.25,
+                      max_shift: float = 0.12, max_persp: float = 5e-4) -> np.ndarray:
+    """Random homography [3, 3] float32 mapping (u, v) pixel coordinates,
+    centred on the image: rotation, scale, shift and a little perspective."""
+    ang = rng.uniform(-max_angle, max_angle)
+    sc = 1.0 + rng.uniform(-max_scale, max_scale)
+    ca, sa = np.cos(ang) * sc, np.sin(ang) * sc
+    tu = rng.uniform(-max_shift, max_shift) * w
+    tv = rng.uniform(-max_shift, max_shift) * h
+    pu = rng.uniform(-max_persp, max_persp)
+    pv = rng.uniform(-max_persp, max_persp)
+    c = np.array([w / 2.0, h / 2.0], np.float32)
+    T1 = np.array([[1, 0, -c[0]], [0, 1, -c[1]], [0, 0, 1]], np.float32)
+    A = np.array([[ca, -sa, tu], [sa, ca, tv], [pu, pv, 1.0]], np.float32)
+    T2 = np.array([[1, 0, c[0]], [0, 1, c[1]], [0, 0, 1]], np.float32)
+    return (T2 @ A @ T1).astype(np.float32)
+
+
+def apply_homography(H: np.ndarray, uv: np.ndarray) -> np.ndarray:
+    """[N, 2] (u, v) -> warped (u, v)."""
+    x = np.concatenate([uv, np.ones((len(uv), 1), uv.dtype)], 1) @ H.T
+    return x[:, :2] / np.maximum(np.abs(x[:, 2:]), 1e-9) * np.sign(x[:, 2:])
+
+
+def cell_labels(corners: np.ndarray, h: int, w: int, cell: int = 8) -> np.ndarray:
+    """65-way cell labels [H/8, W/8] int32: the position in its cell of a
+    corner, (v % 8) * 8 + u % 8, or 64 (the dustbin) for an empty cell; the
+    last corner of a cell wins.  SuperPoint's detector target."""
+    hc, wc = h // cell, w // cell
+    lab = np.full((hc, wc), cell * cell, np.int32)
+    for cu, cv in corners:
+        ui, vi = int(cu), int(cv)
+        if 0 <= ui < wc * cell and 0 <= vi < hc * cell:
+            lab[vi // cell, ui // cell] = (vi % cell) * cell + (ui % cell)
+    return lab
+
+
+def make_batch(rng: np.random.Generator, batch: int, h: int, w: int, rich_background: bool = False) -> dict:
+    """One training batch of numpy arrays:
+
+    - ``image`` [B, H, W] float32, the frames A;
+    - ``label_a`` [B, H/8, W/8] int32, their 65-way cell labels;
+    - ``H_ab`` [B, 3, 3] float32, the homography from A's pixels to B's;
+    - ``label_b`` [B, H/8, W/8] int32, the labels in the warped frame B.
+
+    The trainers warp A into B themselves (``train_superpoint.warp_bilinear``).
+    """
+    imgs = np.zeros((batch, h, w), np.float32)
+    lab_a = np.zeros((batch, h // 8, w // 8), np.int32)
+    lab_b = np.zeros((batch, h // 8, w // 8), np.int32)
+    Hs = np.zeros((batch, 3, 3), np.float32)
+    for b in range(batch):
+        img, cs = synth_scene(rng, h, w, rich_background=rich_background)
+        Hm = random_homography(rng, h, w)
+        imgs[b] = img
+        Hs[b] = Hm
+        lab_a[b] = cell_labels(cs, h, w)
+        lab_b[b] = cell_labels(apply_homography(Hm, cs) if len(cs) else cs, h, w)
+    return {"image": imgs, "label_a": lab_a, "label_b": lab_b, "H_ab": Hs}

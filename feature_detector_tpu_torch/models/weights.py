@@ -10,6 +10,9 @@ turns a tree into the port's ``state_dict``.
 An archive's keys are ``params/<layer>/.../kernel|bias|alpha`` (the
 flattening of ``models/train_superpoint.py:save_params_npz``); the tree comes
 back as ``{"params": {...}}`` with float32 leaves.
+
+``init_state`` draws the initial parameters of a model trained from
+scratch, with Flax's defaults.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
+from torch import nn
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _WEIGHTS_DIR = os.path.join(_REPO_ROOT, "feature_detector_tpu", "models", "weights")
@@ -36,3 +41,35 @@ def load_params_npz(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[parts[-1]] = data[key].astype(np.float32)
     return tree
+
+
+TRUNCATED_NORMAL_STD = 0.87962566103423978  # std of a standard normal cut at +-2 (Flax's variance_scaling)
+PRELU_INIT = 0.25
+
+
+@torch.no_grad()
+def init_state(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draws ``model``'s parameters in place, as Flax's defaults do:
+
+    - conv kernels ``lecun_normal``: a normal of std
+      ``sqrt(1 / fan_in) / 0.87962566``, cut at +-2 std (fan_in = input
+      channels x kernel area);
+    - biases zero;
+    - PReLU slopes (a 1-D ``weight``) 0.25.
+
+    Every value is drawn on the CPU from ``generator`` (a CPU
+    ``torch.Generator``), in the order of ``named_parameters``, and copied
+    to the parameter's device.  Returns ``model``."""
+    for name, p in model.named_parameters():
+        if name.endswith("bias"):
+            p.zero_()
+        elif p.dim() == 1:
+            p.fill_(PRELU_INIT)
+        elif p.dim() == 4:
+            std = (1.0 / (p.shape[1] * p.shape[2] * p.shape[3])) ** 0.5 / TRUNCATED_NORMAL_STD
+            draw = torch.empty(p.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(draw, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            p.copy_(draw)
+        else:
+            raise ValueError(f"init_state: no initial value for parameter {name} of shape {tuple(p.shape)}")
+    return model

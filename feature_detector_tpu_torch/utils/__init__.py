@@ -1,1 +1,1 @@
-"""Utilities of the PyTorch/CUDA port (logging)."""
+"""Utilities of the PyTorch/CUDA port: logging, timers, checkpoints, numeric checks, recovery."""

@@ -465,3 +465,131 @@ def test_vo_over_a_mesh_of_one_equals_one_device(card_mesh, vo13_on_card):
     torch.cuda.synchronize()
     assert greedy_select.launches == 2 * 13
     np.testing.assert_array_equal(got.trajectory.positions, res.trajectory.positions)
+
+
+# --------------------------------------------------------------------------
+# Training and its tooling on the card
+# --------------------------------------------------------------------------
+
+TRAIN_LOSS_RTOL = 1e-5  # tests/test_torch_train.py
+TRAIN_GRAD_RTOL, TRAIN_GRAD_ATOL = 1e-4, 1e-6
+CARD_GRAD_SCALE_TOL = 2e-4
+ROUNDING_FACTOR = 2.0  # tests/test_torch_train.py
+ZERO_GRAD_SHARE = 1e-6  # tests/test_torch_train.py's ROUNDING_SHARE
+
+
+def _train_step_grads(model_name, device, dtype=torch.float32, seed=0):
+    """One step of ``make_train_step`` from ``init_state(seed)`` (float32
+    parameters, computed in ``dtype``) on a 64x80 batch of two: (loss, aux,
+    gradients by name in float64 on the CPU)."""
+    from feature_detector_tpu_torch.models import train_disk, train_superpoint
+    from feature_detector_tpu_torch.models.disk import Disk
+    from feature_detector_tpu_torch.models.superpoint import SuperPoint
+    from feature_detector_tpu_torch.models.synth_data import make_batch
+    from feature_detector_tpu_torch.models.weights import init_state
+
+    cls, module = (SuperPoint, train_superpoint) if model_name == "superpoint" else (Disk, train_disk)
+    model = init_state(cls(dtype=dtype), torch.Generator().manual_seed(seed)).to(device)
+    batch = make_batch(np.random.default_rng(seed), 2, 64, 80, rich_background=model_name == "disk")
+    loss, aux = module.make_train_step(model, train_superpoint.adam(model, 1e-3))(batch)
+    return float(loss), {k: float(v) for k, v in aux.items()}, {n: p.grad.double().cpu() for n, p in model.named_parameters()}
+
+
+def _elements_close(got, want) -> bool:
+    return bool(((got - want).abs() <= TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * want.abs()).all())
+
+
+@pytest.mark.parametrize("model_name", ["superpoint", "disk"])
+def test_train_step_on_card_equals_cpu(cuda, model_name, monkeypatch):
+    """The card's first step against the CPU's on the same batch and
+    parameters, TF32 off, with two witnesses that the card computes the
+    CPU's function:
+
+    - float64 compute, card against CPU: every gradient element within rtol
+      1e-4 / atol 1e-6;
+    - float32 with cuDNN off (PyTorch's own CUDA convolutions): every element
+      within the same tolerance of the float64 gradient;
+    - float32 through cuDNN, as training runs: the loss within rtol 1e-5;
+      each gradient element within rtol 1e-4 / atol 1e-6 of the CPU's, or
+      else the parameter's largest distance from the float64 gradient at
+      most ROUNDING_FACTOR times the CPU's float32 one or CARD_GRAD_SCALE_TOL
+      of its largest element.  cuDNN's float32 weight gradient of DISK's
+      5x5 head reads 7.5e-5 from float64 (9.4e-5 of its largest element)
+      with the default and the deterministic algorithms alike,
+      where cuDNN off reads 4.2e-7 and the CPU 6.0e-7; SuperPoint's conv1b
+      reads 2.5e-4 of its largest on the card and the CPU alike (8.6e-6);
+      a gradient that is 0 in exact arithmetic (``normalised_biases``)
+      within ZERO_GRAD_SHARE of the total gradient norm on both.
+    ``-s`` prints each reading (its relative worst parameter leaves out
+    those zero-gradient biases)."""
+    from feature_detector_tpu_torch.models.disk import Disk, normalised_biases
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    _, _, cpu64 = _train_step_grads(model_name, "cpu", torch.float64)
+    _, _, card64 = _train_step_grads(model_name, cuda, torch.float64)
+    with monkeypatch.context() as m:
+        m.setattr(torch.backends.cudnn, "enabled", False)
+        _, _, plain32 = _train_step_grads(model_name, cuda)
+    with monkeypatch.context() as m:
+        m.setattr(torch.backends.cudnn, "deterministic", True)
+        _, _, det32 = _train_step_grads(model_name, cuda)
+    loss, aux, grads = _train_step_grads(model_name, cuda)
+    cpu_loss, cpu_aux, cpu_grads = _train_step_grads(model_name, "cpu")
+    far = lambda g: {n: float((g[n] - cpu64[n]).abs().max()) for n in cpu64}
+    scale = {n: float(r.abs().max()) for n, r in cpu64.items()}
+    zero = normalised_biases(Disk()) if model_name == "disk" else set()
+    worst = lambda d: max(set(d) - zero, key=lambda n: d[n] / scale[n])
+    far_card, far_cpu = far(grads), far(cpu_grads)
+    for what, d in (("card float64", far(card64)), ("card float32, cuDNN off", far(plain32)),
+                    ("card float32, cuDNN", far_card), ("card float32, cuDNN deterministic", far(det32)),
+                    ("CPU float32", far_cpu)):
+        n = worst(d)
+        print(f"{model_name} {what}: from the CPU's float64 at most {max(d.values()):.3g}; relative worst {n} "
+              f"{d[n]:.3g} on a largest {scale[n]:.3g}")
+
+    for name, want in cpu64.items():
+        assert _elements_close(card64[name], want), f"float64 {name}"
+        assert _elements_close(plain32[name], want), f"float32 with cuDNN off {name}"
+    np.testing.assert_allclose(loss, cpu_loss, rtol=TRAIN_LOSS_RTOL)
+    for k in aux:
+        np.testing.assert_allclose(aux[k], cpu_aux[k], rtol=TRAIN_LOSS_RTOL)
+    total = float(torch.sqrt(sum((g * g).sum() for g in cpu_grads.values())))
+    for name, want in cpu_grads.items():
+        got = grads[name]
+        if name in zero:
+            assert max(float(got.abs().max()), float(want.abs().max())) <= ZERO_GRAD_SHARE * total, name
+        elif not _elements_close(got, want):
+            bound = max(ROUNDING_FACTOR * far_cpu[name], CARD_GRAD_SCALE_TOL * scale[name])
+            assert far_card[name] <= bound, f"{name}: {far_card[name]} from float64 (CPU {far_cpu[name]}) on a " \
+                f"largest gradient of {scale[name]}"
+
+
+def test_checkpoint_round_trip_onto_cuda(cuda, tmp_path):
+    from feature_detector_tpu_torch.utils.checkpoint import CheckpointManager, restore_pytree, save_pytree
+
+    tree = {"w": torch.randn(3, 4, device=cuda), "b": torch.ones(4, dtype=torch.bfloat16, device=cuda),
+            "step": torch.tensor(7, dtype=torch.int32), "host": np.arange(3.0)}
+    path = str(tmp_path / "ckpt")
+    save_pytree(path, tree)
+    back = restore_pytree(path, template=tree)
+    assert back["w"].is_cuda and back["b"].is_cuda and not back["step"].is_cuda
+    assert torch.equal(back["w"], tree["w"]) and back["b"].dtype == torch.bfloat16
+    on_cpu = restore_pytree(path, template={**tree, "w": tree["w"].cpu(), "b": tree["b"].cpu()})
+    assert not on_cpu["w"].is_cuda and torch.equal(on_cpu["w"], tree["w"].cpu())
+    assert not restore_pytree(path)["w"].is_cuda  # no template: as stored, on the CPU
+    with CheckpointManager(str(tmp_path / "mgr"), max_to_keep=1) as mgr:
+        mgr.save(5, tree)
+        assert mgr.restore(tree)["w"].device == tree["w"].device
+
+
+def test_save_image_without_pil(monkeypatch, tmp_path):
+    """The standard-library PNG path (the card's host has no PIL), forced
+    here, read back by ``read_png``."""
+    from feature_detector_tpu_torch.io import images
+
+    monkeypatch.setattr(images, "_HAVE_PIL", False)
+    for arr in (np.arange(35, dtype=np.uint8).reshape(5, 7), np.random.default_rng(0).integers(0, 256, (6, 4, 3))):
+        path = str(tmp_path / "x.png")
+        images.save_image(path, arr)
+        assert np.array_equal(images.read_png(path), np.asarray(arr, np.uint8))

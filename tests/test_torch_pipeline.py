@@ -140,25 +140,22 @@ def test_option_and_container_conversion():
         from_jax(object())
 
 
+PORT_ONLY_MODULES = ("chip_smoke", "tests.torch_dist_worker", "tests.test_torch_gpu")  # import nothing of JAX
+
+
 def test_port_imports_no_jax():
+    """Every module of the port, found by walking the package, and the
+    scripts and test helpers that run where JAX is absent, import neither
+    JAX, Flax nor the JAX package."""
     code = (
-        "import sys, feature_detector_tpu_torch, feature_detector_tpu_torch.core.convert, "
-        "feature_detector_tpu_torch.models.synth_data, feature_detector_tpu_torch.kernels._build, "
-        "feature_detector_tpu_torch.kernels.lsd, feature_detector_tpu_torch.kernels.lsd_flood, "
-        "feature_detector_tpu_torch.frontend.line_detector, feature_detector_tpu_torch.models.weights, "
-        "feature_detector_tpu_torch.models.superpoint, feature_detector_tpu_torch.models.disk, "
-        "feature_detector_tpu_torch.frontend.nn_detector, feature_detector_tpu_torch.match.float_matcher, "
-        "feature_detector_tpu_torch.kernels.nn_ops, feature_detector_tpu_torch.utils.log, "
-        "feature_detector_tpu_torch.slam.lie, feature_detector_tpu_torch.slam.linalg3, "
-        "feature_detector_tpu_torch.slam.camera, feature_detector_tpu_torch.slam.evaluate, "
-        "feature_detector_tpu_torch.slam.geometry, feature_detector_tpu_torch.slam.pose_graph, "
-        "feature_detector_tpu_torch.slam.ba, feature_detector_tpu_torch.slam.sequence, "
-        "feature_detector_tpu_torch.slam.vo_fused, feature_detector_tpu_torch.parallel.distributed, "
-        "feature_detector_tpu_torch.parallel.mesh, feature_detector_tpu_torch.parallel.halo, "
-        "feature_detector_tpu_torch.parallel.frontend, tests.torch_dist_worker, "
-        "chip_smoke, tests.test_torch_gpu\n"
+        "import importlib, pkgutil, sys\n"
+        "import feature_detector_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        f"names += {list(PORT_ONLY_MODULES)!r}\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'feature_detector_tpu')]\n"
-        "print(bad)\nsys.exit(1 if bad else 0)\n"
+        "print(len(names), bad)\nsys.exit(1 if bad or len(names) < 50 else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

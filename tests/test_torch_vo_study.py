@@ -1,12 +1,18 @@
 """The VO port against the JAX package on the 120-frame bench sequence, on
-the CPU: a study, not a test (it takes about five minutes).
+the CPU: a study, not a test (it takes about five minutes a seed).
 
-    JAX_PLATFORMS=cpu python -m tests.test_torch_vo_study
+    JAX_PLATFORMS=cpu python -m tests.test_torch_vo_study [--seeds 1 2 7] [--detail]
 
 Prints one JSON object:
 
-- ``ate_share_of_span``: the whole VO's ATE over the span for the JAX
-  package, the port with its own RANSAC draws and the port with JAX's draws;
+- ``ate_share_of_span_by_seed``: for each seed, the whole VO's ATE over the
+  span for the JAX package, the port with its own RANSAC draws, the port
+  with JAX's draws, and the port with its chunk solver's BA in float64
+  (``chunk_ba_f64``: each chunk's LM solved in float64 as the global BA is,
+  in place of float32 with one refinement step);
+
+With ``--detail`` (at the last seed) also:
+
 - ``chunk_ate_share``: each chunk's solution (the same chunk problems, JAX's
   draws, both solvers) against ground truth, as ATE over the chunk's span;
 - ``ba_perturbation``: the global BA problem of the port's run, solved
@@ -16,9 +22,10 @@ Prints one JSON object:
   center change over the span.
 
 The bench sequence is ``bench.py:275-276``'s: 120 frames at 240x320, 900
-landmarks, seed 7, lateral motion, ``angle_step=0.03``.
+landmarks, lateral motion, ``angle_step=0.03``, seeds 1, 2 and 7 by default.
 """
 
+import argparse
 import json
 
 import jax
@@ -37,7 +44,8 @@ from feature_detector_tpu_torch.slam import sequence as TS
 from feature_detector_tpu_torch.slam import vo_fused as TV
 from feature_detector_tpu_torch.slam.evaluate import ate_rmse
 
-FRAMES, LANDMARKS, SEED = 120, 900, 7
+FRAMES, LANDMARKS = 120, 900
+SEEDS = (1, 2, 7)  # the reference's seeds (feature_detector_tpu/slam/vo_fused.py:40-41)
 CHUNK, OVERLAP = 12, 5
 PERTURB_PX = 1e-5
 
@@ -55,20 +63,49 @@ def centers(rot, trans):
     return -np.einsum("...ji,...j->...i", np.asarray(rot, np.float64), np.asarray(trans, np.float64))
 
 
-def main() -> None:
-    seq = TS.make_synthetic_sequence(n_frames=FRAMES, n_landmarks=LANDMARKS, seed=SEED, motion="lateral",
-                                     angle_step=0.03)
+def bench_sequence(seed: int):
+    return TS.make_synthetic_sequence(n_frames=FRAMES, n_landmarks=LANDMARKS, seed=seed, motion="lateral",
+                                      angle_step=0.03)
+
+
+def chunk_ba_f64(problem, cam, opts, num_fixed=None, dense_frames=False, f64=False):
+    """The chunk solver's BA, solved in float64 (as ``ba_solve`` does)."""
+    return TBA._ba_solve_impl(problem, cam, opts, num_fixed, dense_frames, f64=True)
+
+
+def ate_shares(seq) -> dict:
+    """The whole VO's ATE over the span: JAX, the port with its own draws,
+    with JAX's draws, and with the chunk solver's BA in float64."""
+    truth = seq.trajectory.positions
+    out = {"jax": share(JS.run_visual_odometry_chunked(seq.images, JS.Pinhole(*seq.cam)).trajectory.positions, truth),
+           "port": share(TS.run_visual_odometry_chunked(seq.images, seq.cam, device="cpu").trajectory.positions,
+                         truth)}
+    own_draws, own_solver = TG.ransac_gumbel, TV._ba_solve_impl
+    TG.ransac_gumbel = jax_draws
+    try:
+        out["port_with_jax_draws"] = share(
+            TS.run_visual_odometry_chunked(seq.images, seq.cam, device="cpu").trajectory.positions, truth)
+    finally:
+        TG.ransac_gumbel = own_draws
+    TV._ba_solve_impl = chunk_ba_f64
+    try:
+        out["port_chunk_ba_f64"] = share(
+            TS.run_visual_odometry_chunked(seq.images, seq.cam, device="cpu").trajectory.positions, truth)
+    finally:
+        TV._ba_solve_impl = own_solver
+    return out
+
+
+def detail(seq) -> dict:
+    """Each chunk's solution by both solvers, and the global BA's
+    sensitivity to a tiny change of its observations."""
     truth = seq.trajectory.positions
     span = float(np.linalg.norm(np.ptp(truth, 0)))
-    out = {"frames": FRAMES, "span_m": span}
-
+    out = {}
     port = TS.run_visual_odometry_chunked(seq.images, seq.cam, device="cpu")
-    jax_vo = JS.run_visual_odometry_chunked(seq.images, JS.Pinhole(*seq.cam))
     own_draws = TG.ransac_gumbel
     TG.ransac_gumbel = jax_draws
     try:
-        port_jd = TS.run_visual_odometry_chunked(seq.images, seq.cam, device="cpu")
-
         # The same chunk problems (the port's front-end, JAX's draws) through both chunk solvers.
         det = DetectorOptions(min_feature_distance=10, min_valid_response=20.0, max_features=256, subpixel=True)
         feats, words, dvalid, links = TS.scan_frontend(seq.images, "harris", 200, det, BriefOptions(upright=True),
@@ -86,9 +123,6 @@ def main() -> None:
         jnp.asarray(track_uv), jnp.asarray(track_has))
     got = TV.solve_chunks(torch.from_numpy(track_uv), torch.from_numpy(track_has), seq.cam, 15, 2,
                           BAOptions(**opts), 3.0, gumbel=jax_draws(0, 64, 512))
-    out["ate_share_of_span"] = {"jax": share(jax_vo.trajectory.positions, truth),
-                                "port": share(port.trajectory.positions, truth),
-                                "port_with_jax_draws": share(port_jd.trajectory.positions, truth)}
     out["chunk_ate_share"] = {
         who: [share(centers(r[k], t[k]), truth[s:s + CHUNK]) for k, s in enumerate(starts)]
         for who, (r, t) in (("jax", (np.asarray(want[0]), np.asarray(want[1]))),
@@ -112,6 +146,22 @@ def main() -> None:
         moved = np.abs(centers(a.rot, a.trans) - centers(b.rot, b.trans)).max()
         out["ba_perturbation"][who] = {"rot_max_change": float(np.abs(np.asarray(a.rot) - np.asarray(b.rot)).max()),
                                        "center_max_change_over_span": float(moved) / span}
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seeds", type=int, nargs="+", default=list(SEEDS))
+    ap.add_argument("--detail", action="store_true", help="chunk and global-BA detail at the last seed")
+    args = ap.parse_args()
+    out = {"frames": FRAMES, "landmarks": LANDMARKS, "ate_share_of_span_by_seed": {}, "span_m": {}}
+    for seed in args.seeds:
+        seq = bench_sequence(seed)
+        out["span_m"][seed] = float(np.linalg.norm(np.ptp(seq.trajectory.positions, 0)))
+        out["ate_share_of_span_by_seed"][seed] = ate_shares(seq)
+        print(json.dumps({"seed": seed, **out["ate_share_of_span_by_seed"][seed]}), flush=True)
+    if args.detail:
+        out.update(detail(bench_sequence(args.seeds[-1])))
     print(json.dumps(out))
 
 

@@ -1,11 +1,12 @@
 """One rank of the multi-process tests of the port's parallel package
-(tests/test_torch_parallel.py, tests/test_torch_vo_mesh.py).
+(tests/test_torch_parallel.py, tests/test_torch_vo_mesh.py) and of its
+data-parallel training step (tests/test_torch_train.py).
 
     python -m tests.torch_dist_worker CASE WORLD RANK PORT WORKDIR
 
 Joins a gloo group of WORLD ranks through ``parallel.distributed.initialize``
 (coordinator localhost:PORT), reads its inputs from WORKDIR/inputs.npz, runs
-CASE ("parallel" or "vo") on a 1-D CPU mesh and writes what it computed to
+CASE ("parallel", "vo" or "train") on a 1-D CPU mesh and writes what it computed to
 WORKDIR/rank{RANK}.npz.  It imports nothing of JAX: the tests make the
 inputs and compare the results.  ``Ranks`` starts the ranks from a test.
 """
@@ -24,6 +25,8 @@ import torch.distributed as dist
 from feature_detector_tpu_torch.core.config import BAOptions, DetectorOptions
 from feature_detector_tpu_torch.core.convert import ba_problem_from_numpy
 from feature_detector_tpu_torch.kernels.detect import box_sum
+from feature_detector_tpu_torch.models.superpoint import SuperPoint
+from feature_detector_tpu_torch.models.train_superpoint import adam, make_train_step
 from feature_detector_tpu_torch.parallel import distributed
 from feature_detector_tpu_torch.parallel.frontend import (
     make_batched_frontend,
@@ -108,6 +111,23 @@ def run_vo(mesh, inputs, out):
     _ba(out, "dense", make_distributed_ba(mesh, BA_CAM, BAOptions(**BA_DENSE)), _problem(inputs, "dense"))
 
 
+TRAIN_KEYS = ("image", "label_a", "label_b", "H_ab")
+TRAIN_LR = 1e-3
+
+
+def run_train(mesh, inputs, out):
+    """One SuperPoint step (float32, Adam) over the mesh from the parameters
+    ``param/<name>`` on the batch: the loss, this rank's gradients after
+    the all-reduce and its parameters after the step."""
+    model = SuperPoint(dtype=torch.float32)
+    model.load_state_dict({k[len("param/"):]: torch.from_numpy(v) for k, v in inputs.items() if k.startswith("param/")})
+    loss, aux = make_train_step(model, adam(model, TRAIN_LR), mesh=mesh)({k: inputs[k] for k in TRAIN_KEYS})
+    out.update(loss=loss.numpy(), det=aux["det"].numpy(), desc=aux["desc"].numpy())
+    for name, p in model.named_parameters():
+        out[f"grad/{name}"] = p.grad.numpy()
+        out[f"param/{name}"] = p.detach().numpy()
+
+
 def main(case: str, world: int, rank: int, port: int, workdir: str) -> None:
     torch.set_num_threads(THREADS)
     joined = distributed.initialize(f"localhost:{port}", world, rank, device="cpu")
@@ -122,6 +142,8 @@ def main(case: str, world: int, rank: int, port: int, workdir: str) -> None:
             run_parallel(mesh, make_mesh((world,), ("space",), device="cpu"), inputs, out)
         elif case == "vo":
             run_vo(mesh, inputs, out)
+        elif case == "train":
+            run_train(mesh, inputs, out)
         else:
             raise ValueError(f"unknown case {case!r}")
     finally:
