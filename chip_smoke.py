@@ -35,7 +35,15 @@ against the CPU's step; the trained SuperPoint through the npz format into
 step on an NCCL world of one against the one-device step, bit for bit; a
 ``ResilientLoop`` that rolls back an injected NaN.  Last the demos (phase
 ``demo``): ``app/demo.py``'s five demos on synthetic scenes, their PNGs read
-back, the greedy and flood launches counted.
+back, the greedy and flood launches counted.  Then the legacy short-window VO
+(phase ``legacy``): ``run_visual_odometry`` on a 16-frame arc at 240x320 with
+the incremental front-end (greedy twice a frame) and the batch front-end (one
+batched greedy call), its ATE against the reference's bound, stage times and
+busy share, the incremental front-end on the card against the CPU, and
+``run_visual_odometry_chunked(legacy=True)`` on 30 lateral frames.  Last the
+card against the numpy oracles (phase ``oracle``): detection of each kind,
+greedy selection, BRIEF, the LSD angle map and lines, and SuperPoint's
+heatmap selection, each held against ``feature_detector_tpu_torch/oracle``.
 
 One JSON line per phase.  Before the last line: one JSON object describing
 every kernel, then the card's name and power limit as nvidia-smi gives them.
@@ -117,6 +125,27 @@ DEMO_K2 = {"points": 16, "descriptor": 4, "lines": 0, "nn": 4, "vo": 2 * DEMO_VO
 DEMO_PNGS = 14
 
 
+# Legacy phase: the short-window VO (run_visual_odometry) on tests/test_sequence.py:222-237's 16-frame arc,
+# with its ATE bound, and run_visual_odometry_chunked(legacy=True) on the 30-frame lateral sequence of
+# tests/test_sequence.py:251-254 through the entry's own chunking; the incremental front-end on the card
+# against the CPU on the 5-frame arc of tests/test_sequence.py:172-173.
+LEGACY_FRAMES, LEGACY_LANDMARKS, LEGACY_SEED, LEGACY_MAX_TRACK_OBS = 16, 250, 3, 12
+LEGACY_ATE_M = 0.06
+LEGACY_CHUNKED_FRAMES, LEGACY_CHUNKED_LANDMARKS, LEGACY_CHUNK, LEGACY_OVERLAP = 30, 500, 12, 5
+LEGACY_FE_FRAMES, LEGACY_FE_LANDMARKS, LEGACY_FE_SEED = 5, 140, 7
+LEGACY_K2_FRAME = 3  # the incremental front-end's top-up map K2 is held against its plain version on
+LEGACY_TOP_KERNELS = 6
+# Oracle phase: one 752x480 scene per detector kind (the main path's detector options; Harris and
+# Shi-Tomasi at the thresholds of tests/test_detectors.py), 120x160 tiles of it (the oracle tests' size),
+# and the 120x160 bars image of tests/test_lsd.py:14-21.
+ORACLE_SCENE_SEEDS = {"fast": 0, "harris": 1, "shi_tomasi": 2}
+ORACLE_THRESHOLDS = {"fast": 10.0, "harris": 30.0, "shi_tomasi": 40.0}
+ORACLE_TILES = ((0, 0), (120, 160), (240, 320), (360, 592))
+ORACLE_TILE_PICKS = 50
+ORACLE_LINE_PX = 4.0  # every oracle line within 4 px of a detected one (tests/test_lsd.py:49-60)
+ORACLE_BRIEF_TIE = 0.05  # a gather BRIEF bit may differ where the oracle's two reads are this close
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
@@ -176,6 +205,19 @@ def device_ms(torch, fn, kernels, iters: int) -> float:
     check(total > 0, f"the profiler saw no device time of {kernels}")
     return total
 
+
+def traced_device_ms(torch, prof) -> tuple:
+    """Device time in ms and count of every kernel (and copy) of a finished
+    torch.profiler run, by name, summed from the raw trace.  It equals
+    ``key_averages``' device totals, without the event tree that
+    ``key_averages`` builds first (a minute on a run of 250,000 kernels)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ms, counts = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            ms[e.name()] = ms.get(e.name(), 0.0) + e.duration_ns() / 1e6
+            counts[e.name()] = counts.get(e.name(), 0) + 1
+    return ms, counts
 
 def greedy_bound_ms(batch: int, rows: int, cols: int, picks: int) -> float:
     """Least time for greedy selection: read each map once, write each
@@ -598,8 +640,7 @@ def vo_phase(torch, dev, smi):
         end.record()
         torch.cuda.synchronize()
     prof_event_ms = start.elapsed_time(end)
-    per_kernel = {e.key: e.device_time_total / 1e3 for e in prof.key_averages() if e.device_time_total > 0}
-    counts = {e.key: e.count for e in prof.key_averages() if e.device_time_total > 0}
+    per_kernel, counts = traced_device_ms(torch, prof)
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:VO_TOP_KERNELS]
     check(busy_ms > 0, "the profiler saw no device time on the VO path")
@@ -1276,6 +1317,388 @@ def demo_phase(torch, dev, smi) -> tuple:
             {"launches": k3["lines"], "demo": "demo_lines"})
 
 
+def legacy_phase(torch, dev, smi) -> tuple:
+    """The legacy short-window VO on the card (phase ``legacy``):
+    ``run_visual_odometry`` on the 16-frame arc at 240x320 with its
+    defaults (incremental front-end, Harris 200 in 256 slots; K2 twice a
+    frame, counted) in a cold and a timed run with stage seconds, a
+    profiled run (busy share), and once with the batch front-end (K1, one
+    call); ``run_incremental_frontend`` on the card against the CPU; and
+    ``run_visual_odometry_chunked(legacy=True)`` on the 30-frame lateral
+    sequence (K2 twice a chunk frame).  K1 and K2 against their plain
+    versions on the path's own maps.  Emits one JSON line; returns K1's and
+    K2's numbers on this path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from feature_detector_tpu_torch.core.config import BriefOptions, DetectorOptions, HarrisOptions
+    from feature_detector_tpu_torch.core.types import Features
+    from feature_detector_tpu_torch.frontend.detector import detection_maps
+    from feature_detector_tpu_torch.kernels.detect import greedy_select_ref, harris_response_raw
+    from feature_detector_tpu_torch.kernels.greedy import greedy_select
+    from feature_detector_tpu_torch.slam.evaluate import ate_rmse
+    from feature_detector_tpu_torch.slam.sequence import (
+        make_synthetic_sequence,
+        run_incremental_frontend,
+        run_visual_odometry,
+        run_visual_odometry_chunked,
+    )
+
+    t_phase = time.perf_counter()
+    seq = make_synthetic_sequence(n_frames=LEGACY_FRAMES, n_landmarks=LEGACY_LANDMARKS, seed=LEGACY_SEED,
+                                  angle_step=0.03)
+    imgs = torch.from_numpy(seq.images).to(dev)
+    gt = seq.trajectory.positions
+    n = LEGACY_FRAMES
+
+    def run(**kw):
+        stages = {}
+        torch.cuda.synchronize()
+        greedy_select.launches = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = run_visual_odometry(imgs, seq.cam, max_track_obs=LEGACY_MAX_TRACK_OBS, stage_seconds=stages, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        pos = res.trajectory.positions
+        check(pos.shape == (n, 3) and bool(np.isfinite(pos).all()), f"legacy VO {kw}: finite, one pose a frame")
+        return res, {"wall_s": time.perf_counter() - t0, "event_s": start.elapsed_time(end) / 1e3, "stages_s": stages,
+                     "greedy_launches": greedy_select.launches,
+                     "ate_m": float(ate_rmse(pos, gt, with_scale=True)), "num_tracks": res.num_tracks}
+
+    res, cold = run()
+    _, timed = run()
+    for r in (cold, timed):
+        check(r["greedy_launches"] == 2 * n, f"legacy VO launched greedy {r['greedy_launches']} times, not 2 x {n}")
+        check(r["ate_m"] < LEGACY_ATE_M, f"legacy VO ATE {r['ate_m']} m, bound {LEGACY_ATE_M} m")
+    _, batch = run(incremental=False)
+    check(batch["greedy_launches"] == 2, f"legacy VO, batch front-end: {batch['greedy_launches']} greedy launches, not 2")
+    check(batch["ate_m"] < LEGACY_ATE_M, f"legacy VO, batch front-end: ATE {batch['ate_m']} m")
+
+    # One run under the profiler: the card's busy time against the run's event time.
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run_visual_odometry(imgs, seq.cam, max_track_obs=LEGACY_MAX_TRACK_OBS)
+        end.record()
+        torch.cuda.synchronize()
+    prof_event_ms = start.elapsed_time(end)
+    per_kernel, counts = traced_device_ms(torch, prof)
+    profile_s = time.perf_counter() - t0
+    busy_ms = sum(per_kernel.values())
+    check(busy_ms > 0, "the profiler saw no device time on the legacy VO path")
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:LEGACY_TOP_KERNELS]
+
+    # The incremental front-end on the card against the CPU (steered BRIEF, the VO's detector options).
+    fe_seq = make_synthetic_sequence(n_frames=LEGACY_FE_FRAMES, n_landmarks=LEGACY_FE_LANDMARKS, seed=LEGACY_FE_SEED)
+    det = DetectorOptions(min_feature_distance=10, min_valid_response=20.0, max_features=256, subpixel=True)
+    card_fe = run_incremental_frontend(torch.from_numpy(fe_seq.images).to(dev), "harris", 200, det, BriefOptions())
+    cpu_fe = run_incremental_frontend(fe_seq.images, "harris", 200, det, BriefOptions(), device="cpu")
+    raw = harris_response_raw(torch.from_numpy(fe_seq.images).to(torch.float32), HarrisOptions()).numpy()
+    fe_equal, fe_excused = 0, 0
+    for f in range(LEGACY_FE_FRAMES):
+        cf, pf = card_fe[0], cpu_fe[0]
+        differ = ((cf.uv[f].cpu() != pf.uv[f]).any(-1) | (cf.response[f].cpu() != pf.response[f])
+                  | (cf.valid[f].cpu() != pf.valid[f])).numpy()
+        differ |= (card_fe[1][f].cpu().numpy() != cpu_fe[1][f].numpy()).any(-1)
+        differ |= card_fe[2][f].cpu().numpy() != cpu_fe[2][f].numpy()
+        if f > 0:
+            differ |= card_fe[3][f - 1][2] != cpu_fe[3][f - 1][2]
+        if not differ.any():
+            fe_equal += 1
+            continue
+        uv = np.concatenate([cf.uv[f].cpu().numpy()[differ], pf.uv[f].numpy()[differ]])
+        x = np.clip(uv[:, 0].astype(np.int64), 0, raw.shape[2] - 1)
+        y = np.clip(uv[:, 1].astype(np.int64), 0, raw.shape[1] - 1)
+        near = np.abs(raw[f, y, x] - det.min_valid_response) <= VO_HARRIS_REL * det.min_valid_response
+        check(bool(near.all()), f"incremental front-end: frame {f} differs from the CPU at features off the threshold")
+        fe_excused = int(differ.sum())
+        break  # the carry step feeds every later frame from this one
+
+    # The legacy chunked entry on the 30-frame lateral sequence.
+    lat = make_synthetic_sequence(n_frames=LEGACY_CHUNKED_FRAMES, n_landmarks=LEGACY_CHUNKED_LANDMARKS,
+                                  seed=LEGACY_SEED, motion="lateral", angle_step=0.03)
+    lat_imgs = torch.from_numpy(lat.images).to(dev)
+    stages = {}
+    torch.cuda.synchronize()
+    greedy_select.launches = 0
+    t0 = time.perf_counter()
+    chunked = run_visual_odometry_chunked(lat_imgs, lat.cam, chunk=LEGACY_CHUNK, overlap=LEGACY_OVERLAP, legacy=True,
+                                          stage_seconds=stages)
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    step = LEGACY_CHUNK - LEGACY_OVERLAP
+    chunk_frames = sum(min(s0 + LEGACY_CHUNK, LEGACY_CHUNKED_FRAMES) - s0
+                       for s0 in range(0, LEGACY_CHUNKED_FRAMES - LEGACY_OVERLAP, step))
+    chunked_launches = greedy_select.launches
+    check(chunked_launches == 2 * chunk_frames,
+          f"legacy chunked VO launched greedy {chunked_launches} times, not 2 x {chunk_frames} chunk frames")
+    lat_pos = chunked.trajectory.positions
+    check(lat_pos.shape == (LEGACY_CHUNKED_FRAMES, 3) and bool(np.isfinite(lat_pos).all()),
+          "legacy chunked VO: finite, one pose a frame")
+    lat_span = float(np.linalg.norm(np.ptp(lat.trajectory.positions, 0)))
+    lat_ate = float(ate_rmse(lat_pos, lat.trajectory.positions, with_scale=True))
+
+    # K1 and K2 against their plain versions on the path's own maps (not counted).
+    saved = greedy_select.launches
+    empty = Features.empty(det.max_features, dev)
+    k1_maps = torch.stack([detection_maps(imgs[f], empty, "harris", det)[0] for f in range(n)])
+    k1_call = lambda: greedy_select(k1_maps, 200, 200, det.min_feature_distance)
+    got = k1_call()
+    torch.cuda.synchronize()
+    want = greedy_select_ref(k1_maps, 200, 200, det.min_feature_distance)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "K1 != plain on the legacy batch front-end's maps")
+    k1 = {"launches": batch["greedy_launches"], "max_abs_err": max_abs_err(torch, got, want), "ms": cuda_ms(torch, k1_call, 20),
+          "device_ms": device_ms(torch, k1_call, GREEDY_KERNELS, 10),
+          "plain_ms": cuda_ms(torch, lambda: greedy_select_ref(k1_maps, 200, 200, det.min_feature_distance), 2),
+          "bound_ms": greedy_bound_ms(n, int(seq.images.shape[1]), int(seq.images.shape[2]), 200),
+          "maps": f"batch front-end, {n} frames"}
+    fe16 = run_incremental_frontend(imgs, "harris", 200, det, BriefOptions())
+    f = LEGACY_K2_FRAME
+    n_carried = int((fe16[3][f - 1][2] >= 0).sum())
+    keep = torch.arange(det.max_features, device=dev) < n_carried
+    fr = fe16[0]
+    prefix = Features(fr.uv[f] * keep[:, None], fr.response[f] * keep, fr.valid[f] & keep)
+    cand, _ = detection_maps(imgs[f], prefix, "harris", det)
+    stop = torch.tensor([200 - n_carried], dtype=torch.int32, device=dev)
+    k2_call = lambda: greedy_select(cand, 200, stop, det.min_feature_distance)
+    got = k2_call()
+    torch.cuda.synchronize()
+    want = greedy_select_ref(cand, 200, stop, det.min_feature_distance)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), f"K2 != plain on legacy frame {f}'s top-up map")
+    k2 = {"launches": cold["greedy_launches"], "chunked_launches": chunked_launches,
+          "max_abs_err": max_abs_err(torch, got, want), "ms": cuda_ms(torch, k2_call, 50),
+          "device_ms": device_ms(torch, k2_call, GREEDY_KERNELS, 20),
+          "plain_ms": cuda_ms(torch, lambda: greedy_select_ref(cand, 200, stop, det.min_feature_distance), 2),
+          "bound_ms": greedy_bound_ms(1, int(seq.images.shape[1]), int(seq.images.shape[2]), 200),
+          "maps": f"top-up of frame {f} ({n_carried} carried)"}
+    greedy_select.launches = saved
+
+    emit("legacy", card=smi, frames=n, rows=int(seq.images.shape[1]), cols=int(seq.images.shape[2]),
+         landmarks=LEGACY_LANDMARKS, seed=LEGACY_SEED, cold=cold, timed=timed, batch_frontend=batch,
+         frames_per_s_wall=n / timed["wall_s"], frames_per_s_events=n / timed["event_s"],
+         ate_m=timed["ate_m"], ate_bound_m=LEGACY_ATE_M, profiled_run_event_ms=prof_event_ms, profile_s=profile_s,
+         device_busy_ms=busy_ms,
+         device_busy_share=busy_ms / prof_event_ms, device_kernels=sum(counts.values()),
+         top_kernels_ms=[[name[:90], ms, counts[name]] for name, ms in top],
+         incremental_frontend_frames=LEGACY_FE_FRAMES, incremental_frontend_frames_equal_cpu=fe_equal,
+         incremental_frontend_excused_near_threshold=fe_excused,
+         chunked={"frames": LEGACY_CHUNKED_FRAMES, "landmarks": LEGACY_CHUNKED_LANDMARKS, "chunk": LEGACY_CHUNK,
+                  "overlap": LEGACY_OVERLAP, "seconds": chunked_s, "frames_per_s": LEGACY_CHUNKED_FRAMES / chunked_s,
+                  "stages_s": stages, "greedy_launches": chunked_launches, "chunk_frames": chunk_frames,
+                  "ate_m": lat_ate, "span_m": lat_span, "ate_share_of_span": lat_ate / lat_span,
+                  "num_tracks": chunked.num_tracks},
+         phase_seconds=time.perf_counter() - t_phase)
+    return k1, k2
+
+
+def bars_image(rows: int = 120, cols: int = 160) -> np.ndarray:
+    """Bright straight bars on a dark background (tests/test_lsd.py:14-21)."""
+    img = np.full((rows, cols), 30, np.uint8)
+    img[20:24, 10:150] = 220
+    img[40:110, 80:84] = 220
+    for i in range(60):
+        img[30 + i, 10 + i : 14 + i] = 220
+    return img
+
+
+def endpoint_set_distance(a, b) -> float:
+    """The larger endpoint distance of two segments, under the better of the
+    two endpoint pairings (tests/test_lsd.py)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    d1 = max(np.hypot(*(a[:2] - b[:2])), np.hypot(*(a[2:] - b[2:])))
+    d2 = max(np.hypot(*(a[:2] - b[2:])), np.hypot(*(a[2:] - b[:2])))
+    return float(min(d1, d2))
+
+
+def brief_near_tie(image: np.ndarray, uv, i: int, j: int, opts) -> bool:
+    """Whether the BRIEF oracle's two reads of test j at feature i are
+    within ORACLE_BRIEF_TIE of each other (tests/test_brief.py)."""
+    from feature_detector_tpu_torch.oracle import brief as OB
+
+    x, y = float(uv[i][0]), float(uv[i][1])
+    d = np.arange(-opts.half_patch_size, opts.half_patch_size + 1, dtype=np.float32)
+    dxg, dyg = np.meshgrid(d, d, indexing="xy")
+    vals = OB.bilinear(image, y + dyg, x + dxg)
+    m10, m01 = float((dxg * vals).sum()), float((dyg * vals).sum())
+    st, ct = m01 / np.hypot(m10, m01), m10 / np.hypot(m10, m01)
+    p = OB.BRIEF_PATTERN[j].astype(np.float32)
+    v1 = OB.bilinear(image, st * p[0] + ct * p[1] + y, ct * p[0] - st * p[1] + x)
+    v2 = OB.bilinear(image, st * p[2] + ct * p[3] + y, ct * p[2] - st * p[3] + x)
+    return abs(float(v1) - float(v2)) < ORACLE_BRIEF_TIE
+
+
+def oracle_phase(torch, dev, smi) -> dict:
+    """The card against the numpy oracles (phase ``oracle``), the first
+    reference independent of both packages: ``detect_good_features`` for
+    each detector kind at 752x480 and on 120x160 tiles (K2), greedy
+    selection at B = 8 (K1) and B = 1 against ``select_good_features``,
+    default and gather BRIEF, the LSD angle map, ``detect_good_lines`` (K3)
+    on the bars image, and SuperPoint's heatmap selection.  FAST goes
+    through the whole oracle at 752x480; Harris and Shi-Tomasi there through
+    the oracle's NMS and selection fed the card's response map, since the
+    oracle's float32 cumulative box sums lose digits over a whole 752x480
+    frame (their gap to the card's map is reported), and through the whole
+    oracle on the tiles.  Emits one JSON line; returns each kernel's
+    launches on this path."""
+    from feature_detector_tpu_torch.core.config import (
+        BriefOptions,
+        DetectorOptions,
+        LineDetectorOptions,
+        NNDetectorOptions,
+        NNModelType,
+    )
+    from feature_detector_tpu_torch.core.types import Features, words_to_numpy
+    from feature_detector_tpu_torch.frontend.descriptor import compute_descriptors
+    from feature_detector_tpu_torch.frontend.detector import _default_sub, detect_good_features
+    from feature_detector_tpu_torch.frontend.line_detector import detect_good_lines
+    from feature_detector_tpu_torch.frontend.nn_detector import NNFeaturePointDetector, select_features_from_heatmap
+    from feature_detector_tpu_torch.kernels import detect as KD
+    from feature_detector_tpu_torch.kernels.greedy import greedy_select
+    from feature_detector_tpu_torch.kernels.lsd import line_level_angle_map
+    from feature_detector_tpu_torch.kernels.lsd_flood import propagate_running
+    from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene
+    from feature_detector_tpu_torch.oracle import brief as OB
+    from feature_detector_tpu_torch.oracle import detectors as OD
+    from feature_detector_tpu_torch.oracle import lsd as OL
+    from feature_detector_tpu_torch.oracle import nn_postproc as ON
+
+    t_phase = time.perf_counter()
+    scene = lambda seed, rows=ROWS, cols=COLS: scene_uint8(synth_scene(np.random.default_rng(seed), rows, cols,
+                                                                       rich_background=True)[0])
+    greedy_select.launches = 0
+    propagate_running.launches = 0
+    k1_launches = 0
+    out = {"detect": {}}
+    ones = np.ones((ROWS, COLS), np.int32)
+
+    # Detection, each kind: picks equal to the oracle's.
+    fast_uv = None
+    for kind, seed in ORACLE_SCENE_SEEDS.items():
+        img = scene(seed)
+        opts = DetectorOptions(min_feature_distance=RADIUS, min_valid_response=ORACLE_THRESHOLDS[kind],
+                               max_features=256)
+        sub = _default_sub(kind)
+        card = detect_good_features(torch.from_numpy(img).to(dev), Features.empty(256, dev), kind, PICKS, opts)
+        got = card.to_numpy()[0]
+        entry = {"picks": len(got)}
+        if kind == "fast":
+            want = OD.detect_good_features(img, PICKS, kind, opts, sub)
+            fast_uv = got
+        else:
+            respond = KD.harris_response if kind == "harris" else KD.shi_tomasi_response
+            resp = respond(torch.from_numpy(img).to(dev), torch.from_numpy(ones).to(dev), opts, sub).cpu().numpy()
+            responses, pixels = OD.nms4_candidates(resp, opts.min_valid_response, sub.half_patch_size + 1)
+            want = OD.select_good_features(responses, pixels, ones, PICKS, opts.min_feature_distance)
+            oracle_map = (OD.harris_response_map if kind == "harris" else OD.shi_tomasi_response_map)(
+                img, ones, opts, sub)
+            live = (oracle_map > 0) | (resp > 0)
+            rel = np.abs(resp - oracle_map)[live] / np.maximum(np.abs(oracle_map[live]), 1e-3)
+            entry.update(full_frame_through="the oracle's NMS and selection on the card's response map",
+                         card_map_vs_oracle_map_rel_p99=float(np.quantile(rel, 0.99)),
+                         card_map_vs_oracle_map_abs_max=float(np.abs(resp - oracle_map).max()))
+        check(len(got) == len(want) and np.array_equal(got, np.asarray(want, np.float32).reshape(-1, 2)),
+              f"oracle: {kind} picks at {ROWS}x{COLS} differ from the oracle's")
+        tiles_equal = 0
+        for r0, c0 in ORACLE_TILES:
+            tile = np.ascontiguousarray(img[r0:r0 + 120, c0:c0 + 160])
+            want_t = OD.detect_good_features(tile, ORACLE_TILE_PICKS, kind, opts, sub)
+            got_t = detect_good_features(torch.from_numpy(tile).to(dev), Features.empty(256, dev), kind,
+                                         ORACLE_TILE_PICKS, opts).to_numpy()[0]
+            check(len(got_t) == len(want_t) and np.array_equal(got_t, np.asarray(want_t, np.float32).reshape(-1, 2)),
+                  f"oracle: {kind} picks on the 120x160 tile at ({r0}, {c0}) differ from the oracle's")
+            tiles_equal += 1
+        entry["tiles_equal"] = tiles_equal
+        out["detect"][kind] = entry
+
+    # Greedy selection at B = 8 (K1) and B = 1 (K2) against select_good_features.
+    frames = torch.from_numpy(np.stack([scene(s) for s in range(8)])).to(dev)
+    cand = KD.fast_candidates(KD.fast_response(frames, torch.ones((ROWS, COLS), dtype=torch.int32, device=dev)),
+                              10.0)
+    before = greedy_select.launches
+    uv_b, _, valid_b = greedy_select(cand, PICKS, PICKS, RADIUS)
+    torch.cuda.synchronize()
+    k1_launches += greedy_select.launches - before
+    uv_1, _, valid_1 = greedy_select(cand[0], PICKS, PICKS, RADIUS)
+    cand_np = cand.cpu().numpy()
+    for b in range(8):
+        ys, xs = np.nonzero(cand_np[b] > 0)
+        want = np.asarray(OD.select_good_features(cand_np[b][ys, xs], np.stack([xs, ys], -1), ones, PICKS, RADIUS),
+                          np.float32).reshape(-1, 2)
+        check(np.array_equal(uv_b[b][valid_b[b]].cpu().numpy(), want), f"oracle: K1 frame {b} differs from the oracle")
+        if b == 0:
+            check(np.array_equal(uv_1[valid_1].cpu().numpy(), want), "oracle: K2 differs from the oracle")
+    out["greedy"] = {"k1_batch": 8, "k2_frames": 1, "picks_per_frame": valid_b.sum(1).tolist()}
+
+    # BRIEF on the FAST scene's features: default against the binned oracle, gather against the bilinear one.
+    img = scene(ORACLE_SCENE_SEEDS["fast"])
+    feats = Features.from_numpy(fast_uv, 256, device=dev)
+    brief = {}
+    for method, oracle_fn in (("mxu", OB.compute_binned), ("gather", OB.compute)):
+        opts = BriefOptions(method=method)
+        d = compute_descriptors(torch.from_numpy(img).to(dev), feats, opts)
+        want_bits, want_valid = oracle_fn(img, fast_uv, opts)
+        words = words_to_numpy(d.words)[: len(fast_uv)]
+        bits = np.unpackbits(words.view(np.uint8), axis=-1, bitorder="little")[:, :opts.length]
+        check(np.array_equal(d.valid.cpu().numpy()[: len(fast_uv)], want_valid), f"oracle: BRIEF {method} validity")
+        mism = bits != want_bits
+        if method == "mxu":
+            excused = near_bin_boundary(img, fast_uv)
+            check(not mism[~excused].any(), "oracle: default BRIEF differs off a steering-bin boundary")
+        else:
+            check(all(brief_near_tie(img, fast_uv, i, j, opts) for i, j in zip(*np.nonzero(mism))),
+                  "oracle: gather BRIEF differs where the two reads are not a near-tie")
+        check(mism.sum() <= max(2, 0.005 * mism.size), f"oracle: BRIEF {method}: {int(mism.sum())} bits differ")
+        brief[method] = {"features": len(fast_uv), "bits_differing": int(mism.sum()), "bits": int(mism.size)}
+    out["brief"] = brief
+
+    # LSD: the angle map, and detect_good_lines (K3) on the bars image.
+    lopts = LineDetectorOptions()
+    gn, ga, gv = (x.cpu().numpy() for x in line_level_angle_map(torch.from_numpy(img).to(dev), lopts))
+    wn, wa, wv = OL.line_level_angle_map(img, lopts)
+    check(np.array_equal(gv, wv) and np.array_equal(gn, wn), "oracle: LSD validity or norms differ")
+    angle_err = float(np.abs(ga - wa).max())
+    check(angle_err <= ANGLE_ATOL, f"oracle: LSD angles differ by {angle_err}")
+    bars = bars_image()
+    want_lines = OL.detect_lines(bars, lopts)
+    segs = detect_good_lines(torch.from_numpy(bars).to(dev), 10, lopts).to_numpy()
+    dists = [min(endpoint_set_distance(w, g) for g in segs) for w in want_lines]
+    check(len(want_lines) > 0 and max(dists) < ORACLE_LINE_PX
+          and 0.5 * len(want_lines) <= len(segs) <= 2 * len(want_lines) + 1,
+          f"oracle: bars' lines {segs.tolist()} against the oracle's {want_lines}")
+    recall = []
+    for s in range(3):
+        sc = scene(s)
+        w = OL.detect_lines(sc, lopts)
+        g = detect_good_lines(torch.from_numpy(sc).to(dev), LSD_BUDGET, lopts).to_numpy()
+        recall.append(sum(1 for x in w if len(g) and min(endpoint_set_distance(x, y) for y in g) < ORACLE_LINE_PX)
+                      / max(len(w), 1))
+    out["lsd"] = {"angle_pixels_differing": int((ga != wa).sum()), "angle_max_abs_diff": angle_err,
+                  "valid_and_norm_equal": True, "bars_lines": len(segs), "bars_oracle_lines": len(want_lines),
+                  "bars_max_endpoint_px": max(dists), "scene_recall_at_4px": recall}
+
+    # SuperPoint's heatmap selection against the NN oracle.
+    nopts = NNDetectorOptions(max_image_rows=NN_ROWS, max_image_cols=NN_COLS,
+                              model_type=NNModelType.SUPERPOINT_HEATMAP)
+    det = NNFeaturePointDetector(nopts, device=dev)
+    det.initialize()
+    heat, _ = det.maps(torch.from_numpy(scene(0, NN_ROWS, NN_COLS)).to(dev))
+    got = select_features_from_heatmap(heat, Features.empty(nopts.max_number_of_detected_features, dev),
+                                       nopts).to_numpy()[0]
+    want = np.asarray(ON.select_features(heat.float().cpu().numpy(), [], nopts), np.float32).reshape(-1, 2)
+    check(np.array_equal(got, want), "oracle: SuperPoint heatmap selection differs from the oracle's")
+    out["nn"] = {"model": "superpoint_heatmap", "features": len(got)}
+
+    torch.cuda.synchronize()
+    launches = {"k1": k1_launches, "k2": greedy_select.launches - k1_launches, "k3": propagate_running.launches}
+    check(all(v > 0 for v in launches.values()), f"oracle phase: a kernel was not launched: {launches}")
+    emit("oracle", card=smi, rows=ROWS, cols=COLS, **out, launches=launches,
+         phase_seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def max_abs_err(torch, got, want) -> float:
     return max(float((g.to(torch.float32) - w.to(torch.float32)).abs().max()) for g, w in zip(got, want))
 
@@ -1527,7 +1950,10 @@ def main() -> int:
                           "da": da, "m": m}, vo_run)
     train_k2 = train_phase(torch, dev, smi)
     demo_k2, demo_k3 = demo_phase(torch, dev, smi)
+    legacy_k1, legacy_k2 = legacy_phase(torch, dev, smi)
+    oracle_launches = oracle_phase(torch, dev, smi)
     lsd_kernel["demo_path"] = demo_k3
+    lsd_kernel["oracle_path"] = {"launches": oracle_launches["k3"], "path": "detect_good_lines against the LSD oracle"}
 
     kernels = [
         {"name": "greedy_select (batch)", "route": "cuda", "source": SOURCE,
@@ -1535,14 +1961,16 @@ def main() -> int:
          "launches": batch_launches, "max_abs_err": errs[BATCH],
          "ms": times["greedy_ms_b64"], "device_ms": times["greedy_device_ms_b64"], "plain_ms": times["greedy_plain_ms_b64"],
          "bound_ms": greedy_bound_ms(BATCH, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None,
-         "multi_path": multi_k1},
+         "multi_path": multi_k1, "legacy_path": legacy_k1,
+         "oracle_path": {"launches": oracle_launches["k1"], "path": "greedy_select at B = 8 against the oracle"}},
         {"name": "greedy_select (single frame)", "route": "cuda", "source": SOURCE,
          "replaces": "feature_detector_tpu/kernels/greedy_pallas.py:35",
          "launches": single_launches, "max_abs_err": errs[1],
          "ms": times["greedy_ms_b1"], "device_ms": times["greedy_device_ms_b1"], "plain_ms": times["greedy_plain_ms_b1"],
          "bound_ms": greedy_bound_ms(1, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None,
          "nn_path": nn_k2, "vo_path": vo_k2, "multi_path": multi_k2, "train_path": train_k2,
-         "demo_path": demo_k2},
+         "demo_path": demo_k2, "legacy_path": legacy_k2,
+         "oracle_path": {"launches": oracle_launches["k2"], "path": "detect, tiles, B = 1 and NN selection against the oracles"}},
         lsd_kernel,
     ]
     emit("done", seconds=time.perf_counter() - t_start)

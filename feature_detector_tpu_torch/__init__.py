@@ -4,11 +4,15 @@ A second package beside the JAX reference ``feature_detector_tpu``: the same
 public names, argument order and layouts, written in PyTorch, with each of
 the reference's Pallas TPU kernels on the ported path replaced by a
 hand-written CUDA kernel (``kernels/csrc``); ``slam/`` holds the SLAM
-back-end and the fused chunked visual odometry, ``parallel/`` multi-device
-execution on ``torch.distributed``.  It imports neither JAX nor
-the JAX package.  Entry points run on ``cuda`` unless handed CPU tensors or
-``device="cpu"``.
+back-end, the fused chunked visual odometry and the legacy short-window VO
+(``slam/sequence.py: run_visual_odometry``, ``legacy=True``), ``parallel/``
+multi-device execution on ``torch.distributed``, and ``oracle/`` the numpy
+re-encodings of the reference's behaviour that the port is held against.
+It imports neither JAX nor the JAX package.  Entry points run on ``cuda``
+unless handed CPU tensors or ``device="cpu"``.
 """
+
+__version__ = "0.1.0"
 
 from .core.config import (
     BriefOptions,

@@ -18,6 +18,7 @@ scratch, with Flax's defaults.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,6 +42,16 @@ def load_params_npz(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[parts[-1]] = data[key].astype(np.float32)
     return tree
+
+
+def load_default_superpoint() -> Optional[dict]:
+    """The packaged trained SuperPoint tree, or None when the archive is absent."""
+    return load_params_npz(SUPERPOINT_SYNTH) if os.path.exists(SUPERPOINT_SYNTH) else None
+
+
+def load_default_disk() -> Optional[dict]:
+    """The packaged trained DISK tree, or None when the archive is absent."""
+    return load_params_npz(DISK_SYNTH) if os.path.exists(DISK_SYNTH) else None
 
 
 TRUNCATED_NORMAL_STD = 0.87962566103423978  # std of a standard normal cut at +-2 (Flax's variance_scaling)

@@ -593,3 +593,232 @@ def test_save_image_without_pil(monkeypatch, tmp_path):
         path = str(tmp_path / "x.png")
         images.save_image(path, arr)
         assert np.array_equal(images.read_png(path), np.asarray(arr, np.uint8))
+
+
+# --------------------------------------------------------------------------
+# The legacy short-window VO on the card
+# --------------------------------------------------------------------------
+
+
+def _arc5():
+    from feature_detector_tpu_torch.slam.sequence import make_synthetic_sequence
+
+    return make_synthetic_sequence(n_frames=5, n_landmarks=140, seed=7)  # tests/test_sequence.py:172-173
+
+
+def test_incremental_frontend_on_card_equals_cpu(cuda):
+    """``run_incremental_frontend`` (steered BRIEF, the legacy VO's detector
+    options): features, words, validity and links equal to the CPU's; a
+    difference is allowed only at a feature whose Harris response sits at
+    the threshold, and then the later frames are not compared."""
+    from feature_detector_tpu_torch.core.config import BriefOptions
+    from feature_detector_tpu_torch.slam.sequence import run_incremental_frontend
+
+    seq = _arc5()
+    det = DetectorOptions(min_feature_distance=10, min_valid_response=20.0, max_features=256, subpixel=True)
+    out = {}
+    for dev in ("cpu", cuda):
+        f, w, v, links = run_incremental_frontend(torch.from_numpy(seq.images).to(dev), "harris", 200, det,
+                                                  BriefOptions())
+        out[str(dev)] = [t.cpu().numpy() for t in (f.uv, f.response, f.valid, w, v)] + [[m for _, _, m in links]]
+    card, cpu = out["cuda"], out["cpu"]
+    for fr in range(len(seq.images)):
+        differ = ((card[0][fr] != cpu[0][fr]).any(-1) | (card[1][fr] != cpu[1][fr]) | (card[2][fr] != cpu[2][fr])
+                  | (card[3][fr] != cpu[3][fr]).any(-1) | (card[4][fr] != cpu[4][fr]))
+        if fr > 0:
+            differ |= card[5][fr - 1] != cpu[5][fr - 1]
+        if differ.any():
+            uv = np.concatenate([card[0][fr][differ], cpu[0][fr][differ]])
+            assert _harris_near_threshold(seq.images[fr], uv, det.min_valid_response).all()
+            break
+    assert all((m >= 0).sum() >= 15 for m in cpu[5])
+
+
+@pytest.mark.parametrize("incremental", [True, False], ids=["incremental", "batch"])
+def test_legacy_vo_on_card(cuda, incremental):
+    """The 5-frame arc (tests/test_sequence.py:175-192): ATE under 0.05 m;
+    K2 twice a frame on the incremental front-end, K1 once (two launches)
+    on the batch one."""
+    from feature_detector_tpu_torch.slam.evaluate import ate_rmse
+    from feature_detector_tpu_torch.slam.sequence import run_visual_odometry_chunked
+
+    seq = _arc5()
+    greedy_select.launches = 0
+    res = run_visual_odometry_chunked(torch.from_numpy(seq.images).to(cuda), seq.cam, legacy=True,
+                                      incremental=incremental)
+    torch.cuda.synchronize()
+    assert greedy_select.launches == (2 * 5 if incremental else 2)
+    assert res.num_tracks > 20 and np.isfinite(res.trajectory.positions).all()
+    assert float(ate_rmse(res.trajectory.positions, seq.trajectory.positions, with_scale=True)) < 0.05
+
+
+# --------------------------------------------------------------------------
+# The card against the numpy oracles (feature_detector_tpu_torch/oracle)
+# --------------------------------------------------------------------------
+
+ORACLE_OPTS = {  # the main path's FAST options; Harris and Shi-Tomasi at tests/test_detectors.py's thresholds
+    "fast": DetectorOptions(min_feature_distance=20, min_valid_response=10.0, max_features=256),
+    "harris": DetectorOptions(min_feature_distance=20, min_valid_response=30.0, max_features=256),
+    "shi_tomasi": DetectorOptions(min_feature_distance=20, min_valid_response=40.0, max_features=256),
+}
+
+
+def _scene(seed, rows=480, cols=752):
+    return scene_uint8(synth_scene(np.random.default_rng(seed), rows, cols, rich_background=True)[0])
+
+
+@pytest.mark.parametrize("kind", sorted(ORACLE_OPTS))
+def test_detect_on_card_equals_oracle(cuda, kind):
+    """752x480: FAST through the whole oracle; Harris and Shi-Tomasi through
+    the oracle's NMS and selection fed the card's response map (the
+    oracle's float32 cumulative box sums lose digits over a whole 752x480
+    frame), and through the whole oracle on 120x160 tiles."""
+    from feature_detector_tpu_torch.frontend.detector import _default_sub
+    from feature_detector_tpu_torch.kernels import detect as KD
+    from feature_detector_tpu_torch.oracle import detectors as OD
+
+    img = _scene(sorted(ORACLE_OPTS).index(kind))
+    opts, sub = ORACLE_OPTS[kind], _default_sub(kind)
+    got = detect_good_features(torch.from_numpy(img).to(cuda), Features.empty(256, cuda), kind, 200, opts).to_numpy()[0]
+    ones = np.ones(img.shape, np.int32)
+    if kind == "fast":
+        want = OD.detect_good_features(img, 200, kind, opts, sub)
+    else:
+        respond = KD.harris_response if kind == "harris" else KD.shi_tomasi_response
+        resp = respond(torch.from_numpy(img).to(cuda), torch.from_numpy(ones).to(cuda), opts, sub).cpu().numpy()
+        want = OD.select_good_features(*OD.nms4_candidates(resp, opts.min_valid_response, sub.half_patch_size + 1),
+                                       ones, 200, opts.min_feature_distance)
+    np.testing.assert_array_equal(got, np.asarray(want, np.float32).reshape(-1, 2))
+    for r0, c0 in ((0, 0), (120, 160), (240, 320), (360, 592)):
+        tile = np.ascontiguousarray(img[r0:r0 + 120, c0:c0 + 160])
+        got_t = detect_good_features(torch.from_numpy(tile).to(cuda), Features.empty(256, cuda), kind, 50,
+                                     opts).to_numpy()[0]
+        np.testing.assert_array_equal(got_t, np.asarray(OD.detect_good_features(tile, 50, kind, opts, sub),
+                                                        np.float32).reshape(-1, 2))
+
+
+def test_greedy_on_card_equals_oracle_selection(cuda):
+    """K1 at B = 8 and K2 against ``select_good_features`` on the FAST
+    candidates of 8 scenes at 752x480 (200 picks, r = 20)."""
+    from feature_detector_tpu_torch.kernels import detect as KD
+    from feature_detector_tpu_torch.oracle import detectors as OD
+
+    frames = torch.from_numpy(np.stack([_scene(s) for s in range(8)])).to(cuda)
+    cand = KD.fast_candidates(KD.fast_response(frames, torch.ones((480, 752), dtype=torch.int32, device=cuda)), 10.0)
+    uv, _, valid = greedy_select(cand, 200, 200, 20)
+    uv1, _, valid1 = greedy_select(cand[0], 200, 200, 20)
+    cand_np = cand.cpu().numpy()
+    ones = np.ones((480, 752), np.int32)
+    for b in range(8):
+        ys, xs = np.nonzero(cand_np[b] > 0)
+        want = np.asarray(OD.select_good_features(cand_np[b][ys, xs], np.stack([xs, ys], -1), ones, 200, 20),
+                          np.float32).reshape(-1, 2)
+        np.testing.assert_array_equal(uv[b][valid[b]].cpu().numpy(), want)
+        if b == 0:
+            np.testing.assert_array_equal(uv1[valid1].cpu().numpy(), want)
+
+
+def _brief_near_tie(image, uv, i, j, opts):
+    """The BRIEF oracle's two reads of test j at feature i within 0.05."""
+    from feature_detector_tpu_torch.oracle import brief as OB
+
+    x, y = float(uv[i][0]), float(uv[i][1])
+    d = np.arange(-opts.half_patch_size, opts.half_patch_size + 1, dtype=np.float32)
+    dxg, dyg = np.meshgrid(d, d, indexing="xy")
+    vals = OB.bilinear(image, y + dyg, x + dxg)
+    m10, m01 = float((dxg * vals).sum()), float((dyg * vals).sum())
+    st, ct = m01 / np.hypot(m10, m01), m10 / np.hypot(m10, m01)
+    p = OB.BRIEF_PATTERN[j].astype(np.float32)
+    v1 = OB.bilinear(image, st * p[0] + ct * p[1] + y, ct * p[0] - st * p[1] + x)
+    v2 = OB.bilinear(image, st * p[2] + ct * p[3] + y, ct * p[2] - st * p[3] + x)
+    return abs(float(v1) - float(v2)) < 0.05
+
+
+def _steer_bin_boundary(image, uv, bins=30):
+    """Features whose steering angle sits within 1e-4 of a bin boundary."""
+    img = image.astype(np.int64)
+    d = np.arange(-8, 9)
+    out = np.zeros(len(uv), bool)
+    xs = np.clip(np.round(uv[:, 0]).astype(np.int64), 18, image.shape[1] - 19)  # the clip of kernels/brief.py
+    ys = np.clip(np.round(uv[:, 1]).astype(np.int64), 18, image.shape[0] - 19)
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        p = img[y - 8:y + 9, x - 8:x + 9]
+        t = np.arctan2((p * d[:, None]).sum(), (p * d[None, :]).sum()) * bins / (2 * np.pi)
+        out[i] = abs(abs(t - np.floor(t)) - 0.5) < 1e-4
+    return out
+
+
+@pytest.mark.parametrize("method", ["mxu", "gather"])
+def test_brief_on_card_equals_oracle(cuda, method):
+    """Default BRIEF against the binned oracle (a feature at a steering-bin
+    boundary excused), gather BRIEF against the bilinear one (near-ties of
+    the two reads excused); at most max(2, 0.5%) of the bits either way."""
+    from feature_detector_tpu_torch.core.config import BriefOptions
+    from feature_detector_tpu_torch.core.types import words_to_numpy
+    from feature_detector_tpu_torch.oracle import brief as OB
+
+    img = _scene(0)
+    uv = detect_good_features(torch.from_numpy(img).to(cuda), Features.empty(256, cuda), "fast", 200,
+                              ORACLE_OPTS["fast"]).to_numpy()[0]
+    opts = BriefOptions(method=method)
+    d = compute_descriptors(torch.from_numpy(img).to(cuda), Features.from_numpy(uv, 256, device=cuda), opts)
+    want_bits, want_valid = (OB.compute_binned if method == "mxu" else OB.compute)(img, uv, opts)
+    words = words_to_numpy(d.words)[: len(uv)]
+    mism = np.unpackbits(words.view(np.uint8), axis=-1, bitorder="little")[:, :opts.length] != want_bits
+    np.testing.assert_array_equal(d.valid.cpu().numpy()[: len(uv)], want_valid)
+    if method == "mxu":
+        assert not mism[~_steer_bin_boundary(img, uv)].any()
+    else:
+        assert all(_brief_near_tie(img, uv, i, j, opts) for i, j in zip(*np.nonzero(mism)))
+    assert mism.sum() <= max(2, 0.005 * mism.size) and len(uv) > 20
+
+
+def test_lsd_angle_map_on_card_equals_oracle(cuda):
+    """Validity and norms equal; angles within two float32 ulps at pi (the
+    card's atan2 against numpy's, as against the CPU's)."""
+    from feature_detector_tpu_torch.kernels.lsd import line_level_angle_map
+    from feature_detector_tpu_torch.oracle import lsd as OL
+
+    img = _scene(1)
+    opts = LineDetectorOptions()
+    gn, ga, gv = (x.cpu().numpy() for x in line_level_angle_map(torch.from_numpy(img).to(cuda), opts))
+    wn, wa, wv = OL.line_level_angle_map(img, opts)
+    np.testing.assert_array_equal(gv, wv)
+    np.testing.assert_array_equal(gn, wn)
+    assert float(np.abs(ga - wa).max()) <= 5e-7
+
+
+def test_lines_on_card_match_oracle(cuda):
+    """The bars of tests/test_lsd.py:49-60: every oracle line within 4 px of
+    a detected one, counts within [0.5x, 2x + 1]."""
+    from feature_detector_tpu_torch.oracle import lsd as OL
+
+    img = np.full((120, 160), 30, np.uint8)
+    img[20:24, 10:150] = 220
+    img[40:110, 80:84] = 220
+    for i in range(60):
+        img[30 + i, 10 + i:14 + i] = 220
+    want = np.asarray(OL.detect_lines(img, LineDetectorOptions()), np.float32)
+    segs = detect_good_lines(torch.from_numpy(img).to(cuda), 10, LineDetectorOptions()).to_numpy()
+    for w in want:
+        dist = [min(max(np.hypot(*(w[:2] - g[:2])), np.hypot(*(w[2:] - g[2:]))),
+                    max(np.hypot(*(w[:2] - g[2:])), np.hypot(*(w[2:] - g[:2])))) for g in segs]
+        assert min(dist) < 4.0
+    assert 0.5 * len(want) <= len(segs) <= 2 * len(want) + 1
+
+
+def test_nn_heatmap_selection_on_card_equals_oracle(cuda):
+    """SuperPoint's heatmap (packaged weights, bf16, 640x480) selected on
+    the card equals ``nn_postproc.select_features`` on the same map."""
+    from feature_detector_tpu_torch.frontend.nn_detector import select_features_from_heatmap
+    from feature_detector_tpu_torch.oracle import nn_postproc as ON
+
+    opts = NNDetectorOptions(max_image_rows=480, max_image_cols=640, model_type=NNModelType.SUPERPOINT_HEATMAP)
+    det = NNFeaturePointDetector(opts, device=cuda)
+    det.initialize()
+    heat, _ = det.maps(torch.from_numpy(_scene(0, 480, 640)).to(cuda))
+    got = select_features_from_heatmap(heat, Features.empty(opts.max_number_of_detected_features, cuda),
+                                       opts).to_numpy()[0]
+    want = np.asarray(ON.select_features(heat.float().cpu().numpy(), [], opts), np.float32).reshape(-1, 2)
+    np.testing.assert_array_equal(got, want)
+    assert len(got) > 5

@@ -259,13 +259,21 @@ def test_vo_short_sequence_direct_entry():
 
 
 def test_vo_entry_rules(seq13):
+    """The fused path is the default; ``legacy=True`` runs the short-window
+    VO (for n <= chunk one ``run_visual_odometry`` call, with the keyword
+    arguments it takes); both need a card unless asked for the CPU."""
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError):
-            TS.run_visual_odometry_chunked(seq13.images, seq13.cam)  # cuda by default
-    with pytest.raises(NotImplementedError):
-        TS.run_visual_odometry_chunked(seq13.images, seq13.cam, legacy=True, device="cpu")
+        for legacy in (False, True):
+            with pytest.raises(RuntimeError):
+                TS.run_visual_odometry_chunked(seq13.images, seq13.cam, legacy=legacy)  # cuda by default
     stages = {}
     res = TS.run_visual_odometry_chunked(seq13.images[:8], seq13.cam, device="cpu", pose_graph=False,
                                          local_ba_window=6, stage_seconds=stages)
     assert np.isfinite(res.trajectory.positions).all()
     assert set(stages) == {"frontend", "match_gate", "tracks", "chunk_solve", "compose", "pose_graph", "global_ba"}
+    legacy_stages = {}
+    res = TS.run_visual_odometry_chunked(seq13.images[:6], seq13.cam, legacy=True, device="cpu", pose_graph=False,
+                                         local_ba_window=6, stage_seconds=legacy_stages)
+    assert len(res.trajectory) == 6 and np.isfinite(res.trajectory.positions).all() and res.num_tracks > 20
+    assert set(legacy_stages) == {"frontend", "match_gate", "tracks", "init", "pnp", "triangulate", "local_ba",
+                                  "global_ba"}
