@@ -45,6 +45,19 @@ card against the numpy oracles (phase ``oracle``): detection of each kind,
 greedy selection, BRIEF, the LSD angle map and lines, and SuperPoint's
 heatmap selection, each held against ``feature_detector_tpu_torch/oracle``.
 
+    python3 chip_smoke.py --world 4
+
+runs instead the multi-device paths on four cards, one process and one card
+a rank, through ``parallel/distributed.py:initialize`` (NCCL): each rank
+holds K1 and K2 against their plain version on its card, computes every
+path's one-card result there (held against rank 0's), runs the
+frame-parallel front-end and matcher, the row-sharded Harris response, the
+distributed BA (dense, camera-sharded, and the JAX multi-chip entry's seam
+case of 5 cameras), the VO over the mesh and the data-parallel SuperPoint
+step over the four ranks and holds each against one card, counts K1 and K2
+a rank, and times each path on one card and over the four.  A rank that
+fails, or the wall limit, stops every rank and the run prints no result.
+
 One JSON line per phase.  Before the last line: one JSON object describing
 every kernel, then the card's name and power limit as nvidia-smi gives them.
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase raises
@@ -63,6 +76,7 @@ import numpy as np
 
 BATCH, ROWS, COLS, PICKS, RADIUS = 64, 480, 752, 200, 20
 SCENES = 8  # 8 scenes x 8 row shifts = 64 frames
+MAIN_DETECTOR = dict(min_feature_distance=RADIUS, min_valid_response=10.0, max_features=PICKS)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
@@ -123,6 +137,19 @@ DEMO_SEED = 40
 DEMO_VO_FRAMES = 30
 DEMO_K2 = {"points": 16, "descriptor": 4, "lines": 0, "nn": 4, "vo": 2 * DEMO_VO_FRAMES}
 DEMO_PNGS = 14
+# The multi-card run (--world N, one process and one card a rank): timed repeats of each path on one card and
+# over the world, each call after a barrier, after WORLD_WARMUP calls; the parent's wall limit.
+WORLD_REPS = {"fast": 10, "ba": 3, "vo": 2, "train": 8, "collective": 20}
+WORLD_WARMUP = 2
+WORLD_WALL_S = 900.0
+# The camera-sharded seam case of the JAX package's multi-chip entry (__graft_entry__.py:120-162).  Its data
+# are noise-free and two LM steps take its cost from 0.264 to about 6e-7, so the camera-sharded cost is held
+# within GRAFT_CG_COST_SHARE of the initial cost of one card's, not relative to one card's near-zero cost
+# (JAX's own camera-sharded solve ends 2.5e-7 from the port's dense one on the CPU: 0.94e-6 of the initial).
+GRAFT_CAMS, GRAFT_MAX_ITERATIONS, GRAFT_CG_ITERATIONS, GRAFT_CG_COST_SHARE = 5, 2, 24, 2e-6
+# A float32 gradient whose elements part from the one-card step's by more than TRAIN_GRAD_RTOL / ATOL is held
+# against the float64 gradient as tests/test_torch_gpu.py holds the card's cuDNN gradients.
+ROUNDING_FACTOR, CARD_GRAD_SCALE_TOL = 2.0, 2e-4
 
 
 # Legacy phase: the short-window VO (run_visual_odometry) on tests/test_sequence.py:222-237's 16-frame arc,
@@ -744,20 +771,13 @@ def vo_phase(torch, dev, smi):
     return k2, run
 
 
-def vo_chunks_card_vs_cpu(torch, dev, seq, imgs) -> dict:
-    """The fused VO's chunk problems, from the card's scan front-end, solved
-    by ``solve_chunks`` on the card and on the CPU (the same RANSAC draws:
-    CPU generator).  Per chunk: has_pt, ok and the chosen init pair equal,
-    and the largest differences of rotations, camera centers and points,
-    the last two over the chunk's largest center distance (each solution
-    is up to its monocular scale), and each solution's ATE against the
-    ground truth over the chunk's span.  A measurement of where the card's
-    run and the CPU's part, not a check: the chunk solver runs in float32,
-    and a few chunks of this sequence sit between two basins."""
+def vo_chunk_problems(torch, seq, imgs) -> tuple:
+    """The fused VO's chunk problems (default options) from the scan
+    front-end on ``imgs``' device: (track_uv, track_has, the remaining
+    arguments of ``solve_chunks``, the chunk starts, the chunk length)."""
     import inspect
 
     from feature_detector_tpu_torch.core.config import DetectorOptions
-    from feature_detector_tpu_torch.slam.evaluate import ate_rmse
     from feature_detector_tpu_torch.slam.sequence import build_tracks_conflict_free, scan_frontend
     from feature_detector_tpu_torch.slam.vo_fused import (
         chunk_problems,
@@ -765,7 +785,6 @@ def vo_chunks_card_vs_cpu(torch, dev, seq, imgs) -> dict:
         match_and_gate,
         match_offsets_for,
         run_visual_odometry_fused,
-        solve_chunks,
     )
 
     d = {k: v.default for k, v in inspect.signature(run_visual_odometry_fused).parameters.items()}
@@ -780,6 +799,50 @@ def vo_chunks_card_vs_cpu(torch, dev, seq, imgs) -> dict:
     starts = chunk_starts(n, d["chunk"], d["overlap"])
     track_uv, track_has = chunk_problems(tracks, uv_np, starts, d["chunk"], d["max_tracks_per_chunk"])
     args = (seq.cam, d["min_corr"], d["n_rounds"], d["chunk_ba_opts"], d["gate_px"])
+    return track_uv, track_has, args, starts, d["chunk"]
+
+
+def chunk_agreement(seq, starts, chunk: int, a, b) -> list:
+    """The card's and the CPU's chunk solutions (numpy tuples from
+    ``solve_chunks``) on the same problems, per chunk: has_pt, ok and the chosen init pair
+    equal, and the largest differences of rotations, camera centers and
+    points, the last two over the chunk's largest center distance (each
+    solution is up to its monocular scale), and each solution's ATE
+    against the ground truth over the chunk's span."""
+    from feature_detector_tpu_torch.slam.evaluate import ate_rmse
+
+    centers = lambda r, t: -np.einsum("kfji,kfj->kfi", r, t)
+    ca, cb = centers(a[0], a[1]), centers(b[0], b[1])
+    per_chunk = []
+    for k in range(len(starts)):
+        sa, sb = np.linalg.norm(ca[k], axis=1).max(), np.linalg.norm(cb[k], axis=1).max()
+        hp = b[3][k] & a[3][k]
+        rot = float(np.abs(a[0][k] - b[0][k]).max())
+        cen = float(np.abs(ca[k] / sa - cb[k] / sb).max())
+        pts = float(np.abs(a[2][k][hp] / sa - b[2][k][hp] / sb).max()) if hp.any() else 0.0
+        same = bool((a[3][k] == b[3][k]).all() and a[4][k] == b[4][k] and a[5][k] == b[5][k])
+        within = same and rot <= VO_CHUNK_ROT_ATOL and cen <= VO_CHUNK_CENTER_ATOL and pts <= VO_CHUNK_POINT_ATOL
+        # Each solution's own error: Sim(3)-aligned RMSE of its centers against the ground truth, over the
+        # chunk's span.
+        gt = seq.trajectory.positions[starts[k]:starts[k] + chunk]
+        gt_span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+        ate = lambda c: float(ate_rmse(c, gt, with_scale=True)) / gt_span
+        per_chunk.append({"chunk": k, "same_points_ok_init_pair": same, "same_ok": bool(a[4][k] == b[4][k]),
+                          "rot": rot, "center_over_scale": cen, "point_over_scale": pts, "within": within,
+                          "card_ate_over_span": ate(ca[k]), "cpu_ate_over_span": ate(cb[k])})
+    return per_chunk
+
+
+def vo_chunks_card_vs_cpu(torch, dev, seq, imgs) -> dict:
+    """The fused VO's chunk problems, from the card's scan front-end, solved
+    by ``solve_chunks`` on the card and on the CPU (the same RANSAC draws:
+    CPU generator), held chunk by chunk (``chunk_agreement``).  A
+    measurement of where the card's run and the CPU's part, not a check:
+    the chunk solver runs in float32, and a few chunks of this sequence
+    sit between two basins."""
+    from feature_detector_tpu_torch.slam.vo_fused import solve_chunks
+
+    track_uv, track_has, args, starts, chunk = vo_chunk_problems(torch, seq, imgs)
     t0 = time.perf_counter()
     card = [x.cpu().numpy() for x in solve_chunks(torch.from_numpy(track_uv).to(dev),
                                                   torch.from_numpy(track_has).to(dev), *args)]
@@ -787,25 +850,7 @@ def vo_chunks_card_vs_cpu(torch, dev, seq, imgs) -> dict:
     t0 = time.perf_counter()
     cpu = [x.numpy() for x in solve_chunks(torch.from_numpy(track_uv), torch.from_numpy(track_has), *args)]
     cpu_s = time.perf_counter() - t0
-    centers = lambda r, t: -np.einsum("kfji,kfj->kfi", r, t)
-    cc, pc = centers(card[0], card[1]), centers(cpu[0], cpu[1])
-    per_chunk = []
-    for k in range(len(track_uv)):
-        sc, sp = np.linalg.norm(cc[k], axis=1).max(), np.linalg.norm(pc[k], axis=1).max()
-        hp = cpu[3][k] & card[3][k]
-        rot = float(np.abs(card[0][k] - cpu[0][k]).max())
-        cen = float(np.abs(cc[k] / sc - pc[k] / sp).max())
-        pts = float(np.abs(card[2][k][hp] / sc - cpu[2][k][hp] / sp).max()) if hp.any() else 0.0
-        same = bool((card[3][k] == cpu[3][k]).all() and card[4][k] == cpu[4][k] and card[5][k] == cpu[5][k])
-        within = same and rot <= VO_CHUNK_ROT_ATOL and cen <= VO_CHUNK_CENTER_ATOL and pts <= VO_CHUNK_POINT_ATOL
-        # Each solution's own error: Sim(3)-aligned RMSE of its centers against the ground truth, over the
-        # chunk's span.
-        gt = seq.trajectory.positions[starts[k]:starts[k] + d["chunk"]]
-        gt_span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
-        ate = lambda c: float(ate_rmse(c, gt, with_scale=True)) / gt_span
-        per_chunk.append({"chunk": k, "same_points_ok_init_pair": same, "rot": rot, "center_over_scale": cen,
-                          "point_over_scale": pts, "within": within, "card_ate_over_span": ate(cc[k]),
-                          "cpu_ate_over_span": ate(pc[k])})
+    per_chunk = chunk_agreement(seq, starts, chunk, card, cpu)
     return {"chunks": len(per_chunk), "within": sum(c["within"] for c in per_chunk),
             "tolerance": {"rot": VO_CHUNK_ROT_ATOL, "center": VO_CHUNK_CENTER_ATOL, "point": VO_CHUNK_POINT_ATOL},
             "card_solve_s": card_s, "cpu_solve_s": cpu_s, "per_chunk": per_chunk}
@@ -913,7 +958,6 @@ def _multi_paths(torch, dev, smi, mesh, main: dict, vo: dict, t_phase: float):
     # The distributed BA on the VO's global problem against ba_solve on the card.
     seq, prob, ba_opts, span = vo["seq"], vo["result"].problem, vo["ba_opts"], vo["span_m"]
     card_ba = vo["global_ba_card"]
-    centers = lambda p: -torch.einsum("fji,fj->fi", p.rot, p.trans)
     has = (prob.obs_cam >= 0).sum(1) >= 2
     cost = lambda p: float(reprojection_cost(p, seq.cam, BAOptions(huber_delta=1e9)))
     ba = {}
@@ -923,27 +967,12 @@ def _multi_paths(torch, dev, smi, mesh, main: dict, vo: dict, t_phase: float):
         t0 = time.perf_counter()
         sol = solver(prob)
         torch.cuda.synchronize()
-        point_err = (sol.points - card_ba.points)[has].norm(dim=1) / span
-        ba[form] = {"seconds": time.perf_counter() - t0,
-                    "rot_max_abs_err": float((sol.rot - card_ba.rot).abs().max()),
-                    "center_max_abs_err_over_span": float((centers(sol) - centers(card_ba)).abs().max()) / span,
-                    "point_max_err_over_span": float(point_err.max()),
-                    "point_median_err_over_span": float(point_err.median()),
-                    "points_within_1e-2_of_span": float((point_err <= 1e-2).float().mean()),
-                    "cost": cost(sol), "cost_ba_solve": cost(card_ba)}
-    dense, cg = ba["dense"], ba["camera_shard"]
+        ba[form] = {"seconds": time.perf_counter() - t0, **ba_agreement(torch, sol, card_ba, span, has, cost)}
     ba["tolerance"] = {"dense": MULTI_BA_DENSE_ATOL, "camera_shard": MULTI_BA_CG_TOL}
     out["global_ba"] = ba
-    check(dense["rot_max_abs_err"] <= MULTI_BA_DENSE_ATOL["rot"]
-          and dense["center_max_abs_err_over_span"] <= MULTI_BA_DENSE_ATOL["center"]
-          and dense["point_max_err_over_span"] <= MULTI_BA_DENSE_ATOL["point"],
-          f"distributed BA (dense) differs from ba_solve on the card: {dense}")
-    check(cg["rot_max_abs_err"] <= MULTI_BA_CG_TOL["rot"]
-          and cg["center_max_abs_err_over_span"] <= MULTI_BA_CG_TOL["center"]
-          and cg["point_median_err_over_span"] <= MULTI_BA_CG_TOL["point_median"]
-          and cg["points_within_1e-2_of_span"] >= MULTI_BA_CG_TOL["points_within_1e-2"]
-          and cg["cost"] <= (1 + MULTI_BA_CG_TOL["cost"]) * cg["cost_ba_solve"],
-          f"distributed BA (camera-sharded) parts from ba_solve on the card: {cg}")
+    check(dense_ba_ok(ba["dense"]), f"distributed BA (dense) differs from ba_solve on the card: {ba['dense']}")
+    check(cg_ba_ok(ba["camera_shard"]),
+          f"distributed BA (camera-sharded) parts from ba_solve on the card: {ba['camera_shard']}")
 
     # The VO over the mesh (K2, counted) against phase vo's run.
     imgs = vo["imgs"]
@@ -1719,49 +1748,27 @@ def near_bin_boundary(image: np.ndarray, uv: np.ndarray, bins: int = 30) -> np.n
     return out
 
 
-def main() -> int:
-    import torch
+def main_frames() -> tuple:
+    """The main path's frames: 8 seeded scenes at 752x480, frames_a = each
+    scene at 8 row shifts (64 frames), frames_b = frames_a shifted 3
+    columns.  Returns (scenes, frames_a, frames_b)."""
+    from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
-        return 2
+    scenes = [scene_uint8(synth_scene(np.random.default_rng(s), ROWS, COLS, rich_background=True)[0])
+              for s in range(SCENES)]
+    frames_a = np.stack([np.roll(sc, i, axis=0) for sc in scenes for i in range(BATCH // SCENES)])
+    return scenes, frames_a, np.roll(frames_a, 3, axis=2)
 
-    from feature_detector_tpu_torch.core.config import BriefOptions, DetectorOptions, MatcherOptions
-    from feature_detector_tpu_torch.core.types import Features
-    from feature_detector_tpu_torch.frontend.descriptor import compute_descriptors
-    from feature_detector_tpu_torch.frontend.detector import detect_good_features, detect_good_features_batch
-    from feature_detector_tpu_torch.kernels import _build
-    from feature_detector_tpu_torch.kernels.detect import (
-        fast_candidates,
-        fast_response,
-        greedy_select_ref,
-        make_suppression_mask,
-    )
+
+def greedy_checks(torch, dev) -> tuple:
+    """K1 and K2 against their plain version on the card at main-path
+    shapes (dense maps with ties and an all-zero frame, per-frame budgets),
+    then at the seams of the tiled design and on a 1080x1920 frame.  Emits
+    one line per case; returns (max_abs_err by batch, the dense maps)."""
+    from feature_detector_tpu_torch.kernels.detect import greedy_select_ref
     from feature_detector_tpu_torch.kernels.greedy import GREEDY_TILE, greedy_select
-    from feature_detector_tpu_torch.match.hamming import match_hamming
-    from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene, tile_edge_ties
+    from feature_detector_tpu_torch.models.synth_data import tile_edge_ties
 
-    t_start = time.perf_counter()
-    dev = torch.device("cuda")
-
-    # 1. Device.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = nvidia_smi_line()
-    kind = torch.cuda.get_device_name(0)
-    emit("device", name=kind, count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, nvidia_smi=smi)
-
-    # 2. Build every kernel from the sources in the checkout.
-    t = time.perf_counter()
-    report = _build.build(ptxas_verbose=True)
-    emit("build", seconds=time.perf_counter() - t,
-         kernels={k: {"nvcc_seconds": v["seconds"],
-                      "ptxas": [ln.strip() for ln in v["log"].splitlines() if "Used" in ln or "spill" in ln]}
-                  for k, v in report.items()})
-
-    # 3. Kernel against its plain version on the card, at main-path shapes:
-    #    dense maps with ties and an all-zero frame, per-frame budgets.
     rng = np.random.default_rng(0)
     dense = np.round(rng.random((BATCH, ROWS, COLS), np.float32) * 16) / 16  # many ties
     dense[dense < 0.25] = 0.0
@@ -1804,15 +1811,754 @@ def main() -> int:
     check(all(torch.equal(g, w) for g, w in zip(got, want)), "greedy kernel != plain on a 1080x1920 frame")
     emit("kernel_check", kernel="greedy_select", batch=1, shape=list(large.shape), picks=30, radius=RADIUS,
          case="state in the global workspace", exact=True, picks_taken=int(want[2].sum()))
+    return errs, dense_t
+
+
+# --------------------------------------------------------------------------
+# The multi-card run: python3 chip_smoke.py --world N
+# --------------------------------------------------------------------------
+
+
+def run_ranks(argv_of, world: int, logdir, wall_s: float) -> list:
+    """Starts ``world`` processes ``argv_of(rank)`` at once, each in a
+    session of its own with COORDINATOR_ADDRESS (a free localhost port),
+    NUM_PROCESSES, PROCESS_ID and LOCAL_RANK set and its output in
+    ``logdir/rank{r}.out`` and ``.err``, and waits for them.  When one
+    exits non-zero, or ``wall_s`` seconds pass, the rest are killed: a rank
+    that fails leaves the others waiting in a collective.  Returns the exit
+    codes in rank order, None for a rank that was killed."""
+    import os
+    import signal
+    import socket
+
+    logdir.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    try:
+        for r in range(world):
+            rank_env = {**os.environ, "COORDINATOR_ADDRESS": f"localhost:{port}",
+                        "NUM_PROCESSES": str(world), "PROCESS_ID": str(r), "LOCAL_RANK": str(r)}
+            with open(logdir / f"rank{r}.out", "w") as out, open(logdir / f"rank{r}.err", "w") as err:
+                procs.append(subprocess.Popen(argv_of(r), env=rank_env, stdout=out, stderr=err,
+                                              start_new_session=True))
+        deadline = time.monotonic() + wall_s
+        while time.monotonic() < deadline:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes) or any(c not in (None, 0) for c in codes):
+                break
+            time.sleep(0.2)
+        return [p.poll() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+            p.wait()
+
+
+def world_main(world: int) -> int:
+    """The parent of the multi-card run: checks that ``world`` cards are
+    visible, builds the kernels once, starts one rank per card
+    (``rank_main``), and prints rank 0's lines, one line per rank, the
+    kernel line, the cards' name and power limit and the last line only
+    when every rank exited 0."""
+    import os
+    import signal
+    from pathlib import Path
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 2
+    n_cards = torch.cuda.device_count()
+    if n_cards < world:
+        raise RuntimeError(f"chip_smoke --world {world}: {n_cards} CUDA device(s) visible, {world} needed")
+    from feature_detector_tpu_torch.kernels import _build
+
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))  # the ranks are killed on the way out
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    kind = torch.cuda.get_device_name(0)
+    emit("world_device", name=kind, count=n_cards, world=world, cards=cards, torch=torch.__version__,
+         cuda=torch.version.cuda, host_cores=len(os.sched_getaffinity(0)), nvidia_smi=smi)
+    # One build before any rank starts: the ranks only load the libraries.
+    t = time.perf_counter()
+    report = _build.build(ptxas_verbose=True)
+    emit("world_build", seconds=time.perf_counter() - t, kernels={k: v["seconds"] for k, v in report.items()})
+
+    logdir = Path(__file__).resolve().parent / "build" / "chip_smoke_world"
+    script = str(Path(__file__).resolve())
+    codes = run_ranks(lambda r: [sys.executable, script, "--world", str(world), "--rank-process"], world, logdir,
+                      WORLD_WALL_S)
+    if any(c != 0 for c in codes):
+        bad = next((r for r, c in enumerate(codes) if c not in (None, 0)), None)
+        what = f"rank {bad} exited {codes[bad]}" if bad is not None else f"the {WORLD_WALL_S} s wall limit passed"
+        print(f"chip_smoke FAILED: {what}; exit codes {codes} (None: killed)", file=sys.stderr)
+        for r in ([bad] if bad is not None else range(world)):
+            for ext in ("err", "out"):
+                print(f"--- rank {r} {ext} (tail) ---\n{(logdir / f'rank{r}.{ext}').read_text()[-3000:]}",
+                      file=sys.stderr)
+        return 1
+    results = []
+    for r in range(world):
+        lines = (logdir / f"rank{r}.out").read_text().splitlines()
+        last = [ln for ln in lines if ln.startswith('{"rank_result"')]
+        if len(last) != 1:
+            print(f"chip_smoke FAILED: rank {r} exited 0 without its result line", file=sys.stderr)
+            return 1
+        if r == 0:
+            print("\n".join(ln for ln in lines if ln != last[0]))
+        results.append(json.loads(last[0])["rank_result"])
+    for res in results:
+        emit("world_rank", **{k: v for k, v in res.items() if k not in ("kernels", "scaling")})
+    emit("world_scaling", card=smi, world=world, **results[0]["scaling"], seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": results[0]["kernels"]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": world}}))
+    return 0
+
+
+def spread(xs) -> dict:
+    return {"median": float(np.median(xs)), "min": float(np.min(xs)), "max": float(np.max(xs)), "n": len(xs)}
+
+
+def rep_times(torch, fn, reps: int, warmup: int = WORLD_WARMUP, barrier=None) -> dict:
+    """``fn``'s time per call over ``reps`` calls after ``warmup`` calls:
+    CUDA-event ms and host wall ms, each call started after ``barrier()``
+    (all ranks at once) and ended by a synchronize.  Every rank makes the
+    same number of calls, so their collectives pair up."""
+    for _ in range(warmup):
+        fn()
+    events, wall = [], []
+    for _ in range(reps):
+        if barrier is not None:
+            barrier()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        events.append(start.elapsed_time(end))
+    return {"event_ms": spread(events), "wall_ms": spread(wall)}
+
+
+def profiled_call(torch, fn, on: bool):
+    """One call of ``fn``; under torch.profiler when ``on`` (the other ranks
+    make the same call unprofiled).  Returns None, or the call's event ms,
+    the device's busy ms and share, and the NCCL kernels' device ms by name
+    and their share of the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    if not on:
+        fn()
+        torch.cuda.synchronize()
+        return None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end)
+    per_kernel, counts = traced_device_ms(torch, prof)
+    busy = sum(per_kernel.values())
+    check(busy > 0, "the profiler saw no device time")
+    nccl = {k: v for k, v in per_kernel.items() if "nccl" in k.lower()}
+    return {"event_ms": event_ms, "busy_ms": busy, "busy_share": busy / event_ms, "kernels": sum(counts.values()),
+            "nccl_ms": sum(nccl.values()), "nccl_share_of_busy": sum(nccl.values()) / busy,
+            "nccl_kernels": [[k[:80], v, counts[k]] for k, v in sorted(nccl.items(), key=lambda kv: -kv[1])]}
+
+
+def rank0_value(torch, x):
+    """Rank 0's value of ``x`` (the same shape and dtype on every rank), by
+    an NCCL broadcast."""
+    import torch.distributed as dist
+
+    shape = torch.tensor(list(x.shape), dtype=torch.int64, device=x.device)
+    shape0 = shape.clone()
+    dist.broadcast(shape0, 0)
+    check(torch.equal(shape, shape0), f"rank {dist.get_rank()}: a result of shape {tuple(x.shape)}, rank 0's "
+          f"{tuple(shape0.tolist())}")
+    y = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous().clone()
+    dist.broadcast(y, 0)
+    return y.to(torch.bool) if x.dtype == torch.bool else y
+
+
+def graft_seam_problem(n_ranks: int):
+    """The camera-sharded seam case of the JAX package's multi-chip entry
+    (``__graft_entry__.py:120-162``): 5 cameras (30 reduced rows, no
+    multiple of the rank count), 8 points a rank seen by 3 consecutive
+    cameras each, observations projected from the truth and points moved
+    by 0.02.  Returns (problem as numpy arrays, camera)."""
+    from feature_detector_tpu_torch.slam.camera import Pinhole
+
+    n_cams, n_pts, deg = GRAFT_CAMS, 8 * n_ranks, 3
+    rs = np.random.default_rng(0)
+    pts = rs.uniform(-1, 1, (n_pts, 3)).astype(np.float32)
+    pts[:, 2] += 5.0
+    rots = np.broadcast_to(np.eye(3, dtype=np.float32), (n_cams, 3, 3)).copy()
+    trans = np.stack([np.array([0.2 * i, 0.0, 0.0], np.float32) for i in range(n_cams)])
+    cam = Pinhole(fx=100.0, fy=100.0, cx=24.0, cy=16.0)
+    obs_cam = np.stack([np.arange(deg, dtype=np.int32) + (l % (n_cams - deg + 1)) for l in range(n_pts)])
+    pc = np.einsum("ldij,lj->ldi", rots[obs_cam], pts) + trans[obs_cam]
+    obs_uv = np.stack([cam.fx * pc[..., 0] / pc[..., 2] + cam.cx, cam.fy * pc[..., 1] / pc[..., 2] + cam.cy],
+                      -1).astype(np.float32)
+    points = pts + rs.normal(size=pts.shape).astype(np.float32) * 0.02
+    return (rots, trans, points, obs_cam, obs_uv), cam
+
+
+def ba_agreement(torch, sol, want, span: float, has, cost) -> dict:
+    """A BA solution against the one-card ``want``: rotations (rad), camera
+    centers and points over ``span`` (points seen twice), and both costs."""
+    centers = lambda p: -torch.einsum("fji,fj->fi", p.rot, p.trans)
+    point_err = (sol.points - want.points)[has].norm(dim=1) / span
+    return {"rot_max_abs_err": float((sol.rot - want.rot).abs().max()),
+            "center_max_abs_err_over_span": float((centers(sol) - centers(want)).abs().max()) / span,
+            "point_max_err_over_span": float(point_err.max()),
+            "point_median_err_over_span": float(point_err.median()),
+            "points_within_1e-2_of_span": float((point_err <= 1e-2).float().mean()),
+            "cost": cost(sol), "cost_one_card": cost(want),
+            "bitwise": all(torch.equal(getattr(sol, f), getattr(want, f)) for f in ("rot", "trans", "points"))}
+
+
+def dense_ba_ok(e: dict) -> bool:
+    return (e["rot_max_abs_err"] <= MULTI_BA_DENSE_ATOL["rot"]
+            and e["center_max_abs_err_over_span"] <= MULTI_BA_DENSE_ATOL["center"]
+            and e["point_max_err_over_span"] <= MULTI_BA_DENSE_ATOL["point"])
+
+
+def cg_ba_ok(e: dict, initial_cost: float = None) -> bool:
+    """MULTI_BA_CG_TOL; the cost at most 10% above one card's, or, where
+    the problem's ``initial_cost`` is given (a noise-free problem, whose
+    cost converges to about 0), within GRAFT_CG_COST_SHARE of it."""
+    cost_ok = (e["cost"] <= (1 + MULTI_BA_CG_TOL["cost"]) * e["cost_one_card"] if initial_cost is None
+               else abs(e["cost"] - e["cost_one_card"]) <= GRAFT_CG_COST_SHARE * initial_cost)
+    return (e["rot_max_abs_err"] <= MULTI_BA_CG_TOL["rot"]
+            and e["center_max_abs_err_over_span"] <= MULTI_BA_CG_TOL["center"]
+            and e["point_median_err_over_span"] <= MULTI_BA_CG_TOL["point_median"]
+            and e["points_within_1e-2_of_span"] >= MULTI_BA_CG_TOL["points_within_1e-2"] and cost_ok)
+
+
+def grads_agreement(got: dict, want: dict, ref64) -> dict:
+    """Float32 gradients against the one-card step's, as the repo's tests
+    hold a data-parallel step: every element within TRAIN_GRAD_RTOL /
+    TRAIN_GRAD_ATOL; a parameter whose elements part by more is held as
+    ``tests/test_torch_gpu.py`` holds the card's cuDNN gradients, against
+    the float64 gradients ``ref64()``: its largest distance from them at
+    most ROUNDING_FACTOR times the one-card step's or CARD_GRAD_SCALE_TOL
+    of the largest float64 element.  Returns the parameters that needed the
+    float64 rule and those that failed it."""
+    rounded, failed = [], []
+    ref = None
+    for name, w in want.items():
+        g = got[name]
+        if bool(((g - w).abs() <= TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL * w.abs()).all()):
+            continue
+        ref = ref or ref64()
+        r = ref[name]
+        far_got, far_want = float((g.double() - r).abs().max()), float((w.double() - r).abs().max())
+        bound = max(ROUNDING_FACTOR * far_want, CARD_GRAD_SCALE_TOL * float(r.abs().max()))
+        (rounded if far_got <= bound else failed).append([name, far_got, far_want, bound])
+    return {"by_float64_rule": rounded, "failed": failed}
+
+
+def rank_main(world: int) -> int:
+    """One rank of the multi-card run: joins the group through the port's
+    own start-up (``parallel/distributed.py:initialize``, from the
+    environment the parent set: NCCL on ``cuda:LOCAL_RANK``), runs
+    ``world_rank`` and prints its result as the last line."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from feature_detector_tpu_torch.parallel import distributed
+    from feature_detector_tpu_torch.parallel.mesh import mesh_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cores = len(os.sched_getaffinity(0))
+    torch.set_num_threads(max(1, cores // world))
+    t0 = time.perf_counter()
+    joined = distributed.initialize()
+    init_s = time.perf_counter() - t0
+    rank, local = dist.get_rank(), int(os.environ["LOCAL_RANK"])
+    info = distributed.process_info()
+    try:
+        check(joined and dist.get_backend() == "nccl" and dist.get_world_size() == world,
+              f"rank {rank}: joined {joined}, a {dist.get_backend()} world of {dist.get_world_size()}")
+        mesh = distributed.global_data_mesh()
+        dev = mesh_device(mesh)
+        check(mesh.size() == world and dev.index == local,
+              f"rank {rank}: a mesh of {mesh.size()} on {dev}, LOCAL_RANK {local}")
+        out = world_rank(torch, dev, mesh, rank, world)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    out.update(initialize_s=init_s, host_cores=cores, torch_threads=torch.get_num_threads(), process_info=info)
+    print(json.dumps({"rank_result": out}), flush=True)
+    return 0
+
+
+def world_rank(torch, dev, mesh, rank: int, world: int) -> dict:
+    """The work of one rank: (1) K1 and K2 against their plain version on
+    this rank's card; (2) every path's one-card result on this card (the
+    main-path batch, Harris, ``ba_solve`` on the VO's global problem and
+    on the seam case, the VO, a float32 SuperPoint step), held against
+    rank 0's; (3) every multi-device path at this world held against the
+    one-card result, with K1's and K2's launches counted; (4) each path's
+    time on one card and over the world, by CUDA events after a barrier,
+    and one profiled call of each (rank 0; the VO on every rank).  Returns
+    this rank's summary, the kernel line and the scaling table."""
+    import inspect
+
+    import torch.distributed as dist
+
+    from feature_detector_tpu_torch.core.config import BAOptions, BriefOptions, DetectorOptions, MatcherOptions
+    from feature_detector_tpu_torch.core.types import Features
+    from feature_detector_tpu_torch.frontend.detector import detect_good_features_batch, detection_maps
+    from feature_detector_tpu_torch.kernels.brief import brief_compute
+    from feature_detector_tpu_torch.kernels.detect import (
+        fast_candidates,
+        fast_response,
+        greedy_select_ref,
+        harris_response,
+    )
+    from feature_detector_tpu_torch.kernels.greedy import greedy_select
+    from feature_detector_tpu_torch.match.hamming import match_hamming
+    from feature_detector_tpu_torch.models.superpoint import SuperPoint
+    from feature_detector_tpu_torch.models.synth_data import make_batch
+    from feature_detector_tpu_torch.models.train_superpoint import adam, make_train_step
+    from feature_detector_tpu_torch.models.weights import init_state
+    from feature_detector_tpu_torch.parallel.frontend import (
+        make_batched_frontend,
+        make_row_sharded_response,
+        make_two_frame_matcher,
+    )
+    from feature_detector_tpu_torch.parallel.mesh import gather_leading, make_mesh, shard_leading
+    from feature_detector_tpu_torch.slam.ba import BAProblem, ba_solve, make_distributed_ba, reprojection_cost
+    from feature_detector_tpu_torch.slam.evaluate import ate_rmse
+    from feature_detector_tpu_torch.slam.sequence import make_synthetic_sequence, run_visual_odometry_chunked
+    from feature_detector_tpu_torch.slam.vo_fused import run_visual_odometry_fused
+
+    lead = rank == 0
+    t_rank = time.perf_counter()
+    wemit = lambda phase, **fields: emit(f"world_{phase}", rank=rank, **fields)
+    # Every broadcast is made before any comparison: a rank that stopped at its first mismatch would leave
+    # the others' broadcasts unpaired.
+    same_as_rank0 = lambda xs: all([torch.equal(x, rank0_value(torch, x)) for x in xs])
+    failed = []  # checks are held at the end, so that every rank makes the same collectives
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            failed.append(what)
+            print(f"chip_smoke: {what}", file=sys.stderr, flush=True)
+
+    out = {"rank": rank, "device": str(dev), "name": torch.cuda.get_device_name(dev)}
+
+    # 1. K1 and K2 against their plain version on this rank's card.
+    errs, _ = greedy_checks(torch, dev)
+
+    # 2. One card: every path on this card alone, held against rank 0's.
+    t = time.perf_counter()
+    _, frames_a, frames_b = main_frames()
+    ja, jb = torch.from_numpy(frames_a).to(dev), torch.from_numpy(frames_b).to(dev)
+    opts, bopts, mopts = DetectorOptions(**MAIN_DETECTOR), BriefOptions(), MatcherOptions()
+
+    def detect_describe(x):
+        f = detect_good_features_batch(x, "fast", PICKS, opts)
+        return (f, *brief_compute(x, f.uv, f.valid, bopts))
+
+    def pair_matcher():
+        (fa, wa, va), (fb, wb, vb) = detect_describe(ja), detect_describe(jb)
+        return fa, fb, match_hamming(wa, va, wb, vb, mopts)
+
+    fa, wa, va = detect_describe(ja)
+    fb, wb, vb = detect_describe(jb)
+    m = match_hamming(wa, va, wb, vb, mopts)
+    frame, fmask = ja[0], torch.ones(ja.shape[1:], dtype=torch.int32, device=dev)
+    ropts = DetectorOptions(min_valid_response=30.0)
+    harris = harris_response(frame, fmask, ropts)
+
+    seq = make_synthetic_sequence(n_frames=VO_FRAMES, n_landmarks=VO_LANDMARKS, seed=VO_SEED, motion="lateral",
+                                  angle_step=0.03)
+    imgs = torch.from_numpy(seq.images).to(dev)
+    gt = seq.trajectory.positions
+    span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
+    torch.cuda.synchronize()
+    greedy_select.launches = 0
+    vo_one = run_visual_odometry_chunked(imgs, seq.cam)
+    torch.cuda.synchronize()
+    k2_one = greedy_select.launches
+    expect(k2_one == 2 * VO_FRAMES, f"rank {rank}: the one-card VO launched K2 {k2_one} times, not 2 x {VO_FRAMES}")
+    ate_one = float(ate_rmse(vo_one.trajectory.positions, gt, with_scale=True))
+    expect(ate_one <= VO_ATE_SPAN_SHARE * span, f"rank {rank}: one-card VO ATE {ate_one} m of a {span} m span")
+
+    # The global BA problem of rank 0's run, so that every rank solves the same problem.
+    prob = BAProblem(*(rank0_value(torch, x) for x in vo_one.problem))
+    ba_opts = inspect.signature(run_visual_odometry_fused).parameters["ba_opts"].default
+    ba_one = ba_solve(prob, seq.cam, ba_opts)
+    has = (prob.obs_cam >= 0).sum(1) >= 2
+    cost_on = lambda cam: (lambda p: float(reprojection_cost(p, cam, BAOptions(huber_delta=1e9))))
+    graft_np, graft_cam = graft_seam_problem(world)
+    graft = BAProblem(*(torch.from_numpy(x).to(dev) for x in graft_np))
+    graft_opts = BAOptions(max_iterations=GRAFT_MAX_ITERATIONS)
+    graft_one = ba_solve(graft, graft_cam, graft_opts)
+    graft_has = (graft.obs_cam >= 0).sum(1) >= 2
+    graft_centers = -np.einsum("fji,fj->fi", graft_np[0], graft_np[1])
+    graft_span = float(np.linalg.norm(graft_centers.max(0) - graft_centers.min(0)))
+
+    # One float32 SuperPoint step at the global batch (TF32 off, cuDNN deterministic).
+    cfg = TRAIN_MODELS["superpoint"]
+    batch_np = make_batch(np.random.default_rng([TRAIN_SEED, 0, 0]), cfg["batch"], cfg["rows"], cfg["cols"],
+                          rich_background=cfg["rich_background"])
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    state = init_state(SuperPoint(dtype=torch.float32), torch.Generator().manual_seed(TRAIN_SEED)).state_dict()
+
+    def sp_step(dtype, step_mesh):
+        model = SuperPoint(dtype=dtype).to(dev)
+        model.load_state_dict(state)
+        loss, aux = make_train_step(model, adam(model, TRAIN_LR), mesh=step_mesh)(batch)
+        return (torch.stack([loss, aux["det"], aux["desc"]]).detach(),
+                {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+                {n: p.detach().clone() for n, p in model.named_parameters()})
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    loss_one, grads_one, params_one = sp_step(torch.float32, None)
+    ref64 = lambda: {n: g.double() for n, g in sp_step(torch.float64, None)[1].items()}
+
+    # Rank k's one-card results against rank 0's.
+    vs0 = {"main_path_exact": same_as_rank0([fa.uv, fa.response, fa.valid, wa, va, fb.uv, fb.response, fb.valid,
+                                             wb, vb, m.index, m.distance, m.valid]),
+           "harris_exact": same_as_rank0([harris])}
+    pos_one = torch.from_numpy(vo_one.trajectory.positions).to(dev)
+    pos0 = rank0_value(torch, pos_one)
+    ate0 = float(rank0_value(torch, torch.tensor([ate_one], dtype=torch.float64, device=dev)))
+    vs0["vo_position_max_abs_err_over_span"] = float((pos_one - pos0).abs().max()) / span
+    vs0["vo_bitwise"] = bool(torch.equal(pos_one, pos0))
+    vs0["ate_m"], vs0["rank0_ate_m"] = ate_one, ate0
+    ba0 = ba_one._replace(**{f: rank0_value(torch, getattr(ba_one, f)) for f in ("rot", "trans", "points")})
+    vs0["ba_solve"] = ba_agreement(torch, ba_one, ba0, span, has, cost_on(seq.cam))
+    g0 = graft_one._replace(**{f: rank0_value(torch, getattr(graft_one, f)) for f in ("rot", "trans", "points")})
+    vs0["ba_solve_graft"] = ba_agreement(torch, graft_one, g0, graft_span, graft_has, cost_on(graft_cam))
+    loss0 = rank0_value(torch, loss_one)
+    grads0 = {n: rank0_value(torch, g) for n, g in grads_one.items()}
+    vs0["train_f32_loss_rel"] = float(((loss_one - loss0).abs() / loss0.abs()).max())
+    vs0["train_f32_bitwise"] = bool(torch.equal(loss_one, loss0)) and all(torch.equal(grads_one[n], grads0[n])
+                                                                         for n in grads0)
+    vs0["train_f32_grads"] = grads_agreement(grads_one, grads0, ref64)
+    wemit("one_card", seconds=time.perf_counter() - t, vo_ate_m=ate_one, vo_ate_share_of_span=ate_one / span,
+          greedy_launches_vo=k2_one, against_rank0=vs0)
+    expect(vs0["main_path_exact"] and vs0["harris_exact"], f"rank {rank}: one-card front-end or Harris != rank 0's")
+    expect(vs0["vo_position_max_abs_err_over_span"] <= MULTI_VO_POS_ATOL and f"{ate_one:.4f}" == f"{ate0:.4f}",
+          f"rank {rank}: one-card VO parts from rank 0's: {vs0}")
+    expect(dense_ba_ok(vs0["ba_solve"]) and dense_ba_ok(vs0["ba_solve_graft"]),
+          f"rank {rank}: one-card ba_solve parts from rank 0's: {vs0['ba_solve']}, {vs0['ba_solve_graft']}")
+    expect(vs0["train_f32_loss_rel"] <= TRAIN_LOSS_RTOL and not vs0["train_f32_grads"]["failed"],
+          f"rank {rank}: one-card float32 step parts from rank 0's: {vs0['train_f32_grads']}")
+
+    # 3. Every multi-device path at this world against the one-card result.
+    t = time.perf_counter()
+    res = {}
+    frontend = make_batched_frontend(mesh, "fast", PICKS, opts, brief_opts=bopts)
+    torch.cuda.synchronize()
+    greedy_select.launches = 0
+    feats, words, dvalid = frontend(ja)
+    torch.cuda.synchronize()
+    k1_frontend = greedy_select.launches
+    expect(k1_frontend == 2, f"rank {rank}: the front-end launched K1 {k1_frontend} times, not 2")
+    expect(all(torch.equal(g, w) for g, w in ((feats.uv, fa.uv), (feats.response, fa.response),
+                                           (feats.valid, fa.valid), (words, wa), (dvalid, va))),
+          f"rank {rank}: the frame-parallel front-end differs from one card's")
+
+    matcher = make_two_frame_matcher(mesh, "fast", PICKS, opts, brief_opts=bopts, matcher_opts=mopts)
+    torch.cuda.synchronize()
+    greedy_select.launches = 0
+    ma_f, mb_f, mm = matcher(ja, jb)
+    torch.cuda.synchronize()
+    k1_matcher = greedy_select.launches
+    expect(k1_matcher == 4, f"rank {rank}: the two-frame matcher launched K1 {k1_matcher} times, not 2 x 2")
+    expect(all(torch.equal(getattr(g, k), getattr(w, k)) for g, w in ((ma_f, fa), (mb_f, fb))
+              for k in ("uv", "response", "valid"))
+          and all(torch.equal(getattr(mm, k), getattr(m, k)) for k in ("index", "distance", "valid")),
+          f"rank {rank}: the two-frame matcher differs from one card's")
+    res["matches_per_pair"] = float(mm.valid.sum(1).float().mean())
+
+    # K1 against its plain version on this rank's block of the front-end's maps (not counted).
+    ones = torch.ones(ja.shape[1:], dtype=torch.int32, device=dev)
+    block = shard_leading(ja, mesh, "data")
+    cand = fast_candidates(fast_response(block, ones), opts.min_valid_response)
+    saved = greedy_select.launches
+    got = greedy_select(cand, PICKS, PICKS, RADIUS)
+    torch.cuda.synchronize()
+    want = greedy_select_ref(cand, PICKS, PICKS, RADIUS)
+    expect(all(torch.equal(g, w) for g, w in zip(got, want)), f"rank {rank}: K1 != plain on this rank's block")
+    k1 = {"max_abs_err": max(errs[BATCH], max_abs_err(torch, got, want)),
+          "ms": cuda_ms(torch, lambda: greedy_select(cand, PICKS, PICKS, RADIUS), 20),
+          "device_ms": device_ms(torch, lambda: greedy_select(cand, PICKS, PICKS, RADIUS), GREEDY_KERNELS, 10),
+          "plain_ms": cuda_ms(torch, lambda: greedy_select_ref(cand, PICKS, PICKS, RADIUS), 3)}
+    greedy_select.launches = saved
+
+    # Row-sharded Harris: ROWS / world rows a rank, halos from one or two neighbours.
+    space = make_mesh((world,), ("space",), device=dev.type)
+    rows_fn = make_row_sharded_response(space, "harris", ropts)
+    slab_img, slab_mask = shard_leading(frame, space, "space"), shard_leading(fmask, space, "space")
+    expect(torch.equal(gather_leading(rows_fn(slab_img, slab_mask), space, "space"), harris),
+          f"rank {rank}: row-sharded Harris differs from harris_response")
+    res["row_sharded_rows_per_rank"] = int(slab_img.shape[0])
+
+    # The distributed BA: the VO's global problem (dense and camera-sharded) and the seam case.
+    dense_ba = make_distributed_ba(mesh, seq.cam, ba_opts)
+    cg_ba = make_distributed_ba(mesh, seq.cam, ba_opts, camera_shard=True)
+    graft_dense = make_distributed_ba(mesh, graft_cam, graft_opts)
+    graft_cg = make_distributed_ba(mesh, graft_cam, graft_opts, camera_shard=True,
+                                   cg_iterations=GRAFT_CG_ITERATIONS)
+    ba = {"dense": ba_agreement(torch, dense_ba(prob), ba_one, span, has, cost_on(seq.cam)),
+          "camera_shard": ba_agreement(torch, cg_ba(prob), ba_one, span, has, cost_on(seq.cam)),
+          "graft_dense": ba_agreement(torch, graft_dense(graft), graft_one, graft_span, graft_has,
+                                      cost_on(graft_cam)),
+          "graft_camera_shard": ba_agreement(torch, graft_cg(graft), graft_one, graft_span, graft_has,
+                                             cost_on(graft_cam))}
+    ba["graft_initial_cost"] = cost_on(graft_cam)(graft)
+    res["ba"] = ba
+    expect(dense_ba_ok(ba["dense"]) and dense_ba_ok(ba["graft_dense"]),
+          f"rank {rank}: the dense distributed BA parts from ba_solve: {ba['dense']}, {ba['graft_dense']}")
+    expect(cg_ba_ok(ba["camera_shard"]) and cg_ba_ok(ba["graft_camera_shard"], ba["graft_initial_cost"]),
+          f"rank {rank}: the camera-sharded BA parts from ba_solve: {ba['camera_shard']}, {ba['graft_camera_shard']}")
+
+    # The VO over the mesh (K2 counted) against one card's.
+    torch.cuda.synchronize()
+    greedy_select.launches = 0
+    stages_cold = {}
+    vo_mesh = run_visual_odometry_chunked(imgs, seq.cam, mesh=mesh, stage_seconds=stages_cold)
+    torch.cuda.synchronize()
+    k2_mesh = greedy_select.launches
+    expect(k2_mesh == 2 * VO_FRAMES, f"rank {rank}: the VO over the mesh launched K2 {k2_mesh} times, not 2 x {VO_FRAMES}")
+    pos = vo_mesh.trajectory.positions
+    expect(pos.shape == (VO_FRAMES, 3) and bool(np.isfinite(pos).all()), f"rank {rank}: VO over the mesh not finite")
+    ate_mesh = float(ate_rmse(pos, gt, with_scale=True))
+    pos_err = float(np.abs(pos - vo_one.trajectory.positions).max()) / span
+    ranks_agree = same_as_rank0([torch.from_numpy(pos).to(dev)])
+    res["vo"] = {"ate_m": ate_mesh, "ate_share_of_span": ate_mesh / span, "one_card_ate_m": ate_one,
+                 "position_max_abs_err_over_span": pos_err, "tolerance_over_span": MULTI_VO_POS_ATOL,
+                 "bitwise": bool(np.array_equal(pos, vo_one.trajectory.positions)), "greedy_launches": k2_mesh,
+                 "ranks_bitwise": ranks_agree, "stages_cold_s": stages_cold}
+    expect(ate_mesh <= VO_ATE_SPAN_SHARE * span, f"rank {rank}: VO over the mesh: ATE {ate_mesh} m of {span} m")
+    expect(ranks_agree, f"rank {rank}: the VO over the mesh differs from rank 0's")
+    expect(pos_err <= MULTI_VO_POS_ATOL, f"rank {rank}: the VO over the mesh parts from one card's: {res['vo']}")
+
+    # The collectives alone, all ranks after a barrier: the dense BA's packed system (float64, n6^2 + n6 + 1
+    # values), the camera-sharded CG's all-gather of a block of rows, SuperPoint's flat float32 gradient.
+    n6 = 6 * int(prob.rot.shape[0])
+    n_grad = sum(g.numel() for g in grads_one.values())
+    collectives = {}
+    for name, numel, dtype, gather in (("all_reduce_ba_system", n6 * n6 + n6 + 1, torch.float64, False),
+                                       ("all_gather_cg_rows", -(-n6 // world), torch.float64, True),
+                                       ("all_reduce_gradient", n_grad, torch.float32, False)):
+        x = torch.ones(numel, dtype=dtype, device=dev)
+        parts = [torch.empty_like(x) for _ in range(world)]
+        call = (lambda x=x, parts=parts: dist.all_gather(parts, x)) if gather else (lambda x=x: dist.all_reduce(x))
+        t_c = rep_times(torch, call, WORLD_REPS["collective"], WORLD_WARMUP, dist.barrier)
+        nbytes = numel * x.element_size()
+        ms = t_c["event_ms"]["median"]
+        # NCCL's bus rate: an all-reduce moves 2 (n - 1) / n of the buffer a rank, an all-gather (n - 1) of it.
+        moved = nbytes * (2 * (world - 1) / world if not gather else world - 1)
+        collectives[name] = {"bytes_a_rank": nbytes, **t_c, "bus_gb_per_s": moved / (ms / 1e3) / 1e9}
+
+    # K2 against its plain version on the VO's frame-0 top-up map (not counted).
+    det = DetectorOptions(min_feature_distance=10, min_valid_response=20.0, max_features=256, subpixel=True)
+    cand2, _ = detection_maps(imgs[0], Features.empty(det.max_features, dev), "harris", det)
+    saved = greedy_select.launches
+    got = greedy_select(cand2, 200, 200, det.min_feature_distance)
+    torch.cuda.synchronize()
+    want = greedy_select_ref(cand2, 200, 200, det.min_feature_distance)
+    expect(all(torch.equal(g, w) for g, w in zip(got, want)), f"rank {rank}: K2 != plain on the VO's frame-0 map")
+    k2 = {"max_abs_err": max(errs[1], max_abs_err(torch, got, want)),
+          "ms": cuda_ms(torch, lambda: greedy_select(cand2, 200, 200, det.min_feature_distance), 50),
+          "device_ms": device_ms(torch, lambda: greedy_select(cand2, 200, 200, det.min_feature_distance),
+                                 GREEDY_KERNELS, 20),
+          "plain_ms": cuda_ms(torch, lambda: greedy_select_ref(cand2, 200, 200, det.min_feature_distance), 2)}
+    greedy_select.launches = saved
+
+    # The data-parallel float32 step at the same global batch against one card's.
+    loss_w, grads_w, params_w = sp_step(torch.float32, mesh)
+    torch.backends.cudnn.deterministic = False
+    train = {"loss_rel": float(((loss_w - loss_one).abs() / loss_one.abs()).max()),
+             "batch_per_rank": cfg["batch"] // world,
+             "ranks_bitwise": same_as_rank0([loss_w, *grads_w.values(), *params_w.values()]),
+             "grads": grads_agreement(grads_w, grads_one, ref64)}
+    res["train_f32"] = train
+    expect(train["ranks_bitwise"], f"rank {rank}: the data-parallel step's gradients or parameters differ from "
+          "rank 0's")
+    expect(train["loss_rel"] <= TRAIN_LOSS_RTOL and not train["grads"]["failed"],
+          f"rank {rank}: the data-parallel float32 step parts from one card's: {train}")
+    wemit("paths", seconds=time.perf_counter() - t, greedy_launches_frontend=k1_frontend,
+          greedy_launches_matcher=k1_matcher, k1=k1, k2=k2, collectives=collectives, **res)
+
+    # 4. Times: one card against the world on the same work (strong), and at one card's work a rank (weak).
+    t = time.perf_counter()
+    barrier = dist.barrier
+    reps = WORLD_REPS
+    times, prof = {}, {}
+
+    def one_card_alone(fn, r, warmup=WORLD_WARMUP):
+        """Rank 0 times ``fn`` while the other ranks wait at a barrier: the
+        host-paced paths then have the host to themselves, as on one card."""
+        t_one = rep_times(torch, fn, r, warmup) if lead else None
+        barrier()
+        return t_one
+
+    def both(name, one_fn, world_fn, r, warmup=WORLD_WARMUP, profile=True):
+        times[name] = {"one_card": one_card_alone(one_fn, r, warmup),
+                       "world": rep_times(torch, world_fn, r, warmup, barrier)}
+        if profile:
+            prof[name] = profiled_call(torch, world_fn, lead)
+
+    both("frontend", lambda: detect_describe(ja), lambda: frontend(ja), reps["fast"])
+    both("two_frame_matcher", pair_matcher, lambda: matcher(ja, jb), reps["fast"])
+    both("row_sharded_harris", lambda: harris_response(frame, fmask, ropts), lambda: rows_fn(slab_img, slab_mask),
+         reps["fast"])
+    both("ba_dense", lambda: ba_solve(prob, seq.cam, ba_opts), lambda: dense_ba(prob), reps["ba"], 1)
+    times["ba_camera_shard"] = {"one_card": times["ba_dense"]["one_card"],
+                                "world": rep_times(torch, lambda: cg_ba(prob), reps["ba"], 1, barrier)}
+    prof["ba_camera_shard"] = profiled_call(torch, lambda: cg_ba(prob), lead)
+    both("ba_graft_dense", lambda: ba_solve(graft, graft_cam, graft_opts), lambda: graft_dense(graft), reps["fast"])
+    times["ba_graft_camera_shard"] = {"one_card": times["ba_graft_dense"]["one_card"],
+                                      "world": rep_times(torch, lambda: graft_cg(graft), reps["fast"],
+                                                         WORLD_WARMUP, barrier)}
+    stages_one, stages_mesh = {}, {}
+    both("vo", lambda: run_visual_odometry_chunked(imgs, seq.cam, stage_seconds=stages_one),
+         lambda: run_visual_odometry_chunked(imgs, seq.cam, mesh=mesh, stage_seconds=stages_mesh), reps["vo"], 0,
+         profile=False)
+    # The VO's busy share on every rank: these paths are host-paced.
+    vo_busy = prof["vo"] = profiled_call(torch, lambda: run_visual_odometry_chunked(imgs, seq.cam, mesh=mesh), True)
+
+    # bfloat16 SuperPoint steps: the global batch on one card and over the world (strong), and the same
+    # batch a rank over the world (weak).
+    bstate = init_state(SuperPoint(dtype=torch.bfloat16), torch.Generator().manual_seed(TRAIN_SEED)).state_dict()
+
+    def bf16_step(step_batch, step_mesh):
+        model = SuperPoint(dtype=torch.bfloat16).to(dev)
+        model.load_state_dict(bstate)
+        step = make_train_step(model, adam(model, TRAIN_LR), mesh=step_mesh)
+        return lambda: step(step_batch)
+
+    weak_batch = {k: torch.cat([v] * world) for k, v in batch.items()}
+    both("train_bf16", bf16_step(batch, None), bf16_step(batch, mesh), reps["train"])
+    times["train_bf16_weak"] = {"one_card": times["train_bf16"]["one_card"],
+                                "world": rep_times(torch, bf16_step(weak_batch, mesh), reps["train"], WORLD_WARMUP,
+                                                   barrier)}
+    prof["train_bf16_weak"] = profiled_call(torch, bf16_step(weak_batch, mesh), lead)
+
+    # The front-end at one card's 64 frames a rank: the main batch on every rank's block.
+    weak_frames = torch.cat([ja] * world)
+    wf, ww, wv = frontend(weak_frames)
+    expect(all(torch.equal(g, torch.cat([w] * world)) for g, w in ((wf.uv, fa.uv), (wf.valid, fa.valid), (ww, wa),
+                                                                 (wv, va))),
+          f"rank {rank}: the front-end at {BATCH} frames a rank differs from one card's batch")
+    times["frontend_weak"] = {"one_card": times["frontend"]["one_card"],
+                              "world": rep_times(torch, lambda: frontend(weak_frames), reps["fast"], WORLD_WARMUP,
+                                                 barrier)}
+    prof["frontend_weak"] = profiled_call(torch, lambda: frontend(weak_frames), lead)
+
+    median = lambda name, side: times[name][side]["event_ms"]["median"]
+    strong = {name: {"one_card_ms": median(name, "one_card"), "world_ms": median(name, "world"),
+                     "speedup": median(name, "one_card") / median(name, "world")}
+              for name in times if lead and not name.endswith("_weak")}
+    weak = {name: {"one_card_ms": median(name, "one_card"), "world_ms": median(name, "world"),
+                   "efficiency": median(name, "one_card") / median(name, "world")}
+            for name in times if lead and name.endswith("_weak")}
+    per_rank_steps = lambda st: {k: v / reps["vo"] for k, v in st.items()}
+    wemit("times", seconds=time.perf_counter() - t, times=times, profiled=prof, vo_busy=vo_busy,
+          vo_stage_s_one_card=per_rank_steps(stages_one), vo_stage_s_world=per_rank_steps(stages_mesh))
+
+    out.update(greedy_launches_frontend=k1_frontend, greedy_launches_matcher=k1_matcher,
+               greedy_launches_vo=k2_mesh, vo_ate_share_of_span=ate_mesh / span,
+               vo_position_max_abs_err_over_span=pos_err, vo_bitwise=res["vo"]["bitwise"],
+               vo_busy_share=vo_busy["busy_share"], vo_busy_ms=vo_busy["busy_ms"],
+               vo_event_ms=vo_busy["event_ms"], vo_nccl_share_of_busy=vo_busy["nccl_share_of_busy"],
+               train_f32_loss_rel=train["loss_rel"], seconds=time.perf_counter() - t_rank)
+    check(not failed, f"rank {rank}: {len(failed)} check(s) failed: " + "; ".join(failed))
+    out["scaling"] = {"strong": strong, "weak": weak, "times": times, "profiled_rank0": prof,
+                      "collectives": collectives}
+    out["kernels"] = [
+        {"name": "greedy_select (batch)", "route": "cuda", "source": SOURCE,
+         "replaces": "feature_detector_tpu/kernels/greedy_pallas.py:145", "launches": k1_frontend,
+         "launches_two_frame_matcher": k1_matcher, "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+         "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": greedy_bound_ms(BATCH // world, ROWS, COLS, PICKS), "bound_by": "bytes", "library_ms": None,
+         "shape_per_rank": [BATCH // world, ROWS, COLS], "world": world},
+        {"name": "greedy_select (single frame)", "route": "cuda", "source": SOURCE,
+         "replaces": "feature_detector_tpu/kernels/greedy_pallas.py:35", "launches": k2_mesh,
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "device_ms": k2["device_ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": greedy_bound_ms(1, int(seq.images.shape[1]), int(seq.images.shape[2]), 200),
+         "bound_by": "bytes", "library_ms": None, "path": "the VO over the mesh", "world": world},
+    ]
+    return out
+
+
+def single_card_main() -> int:
+    """The run on one card (no arguments): every phase, then the kernel
+    line, the card's name and power limit, and the last line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 2
+
+    from feature_detector_tpu_torch.core.config import BriefOptions, DetectorOptions, MatcherOptions
+    from feature_detector_tpu_torch.core.types import Features
+    from feature_detector_tpu_torch.frontend.descriptor import compute_descriptors
+    from feature_detector_tpu_torch.frontend.detector import detect_good_features, detect_good_features_batch
+    from feature_detector_tpu_torch.kernels import _build
+    from feature_detector_tpu_torch.kernels.detect import (
+        fast_candidates,
+        fast_response,
+        greedy_select_ref,
+        make_suppression_mask,
+    )
+    from feature_detector_tpu_torch.kernels.greedy import greedy_select
+    from feature_detector_tpu_torch.match.hamming import match_hamming
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # 1. Device.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    emit("device", name=kind, count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, nvidia_smi=smi)
+
+    # 2. Build every kernel from the sources in the checkout.
+    t = time.perf_counter()
+    report = _build.build(ptxas_verbose=True)
+    emit("build", seconds=time.perf_counter() - t,
+         kernels={k: {"nvcc_seconds": v["seconds"],
+                      "ptxas": [ln.strip() for ln in v["log"].splitlines() if "Used" in ln or "spill" in ln]}
+                  for k, v in report.items()})
+
+    # 3. Kernel against its plain version on the card, at main-path shapes,
+    #    at the tiled design's seams and on a large frame.
+    errs, dense_t = greedy_checks(torch, dev)
 
     # 4. Main path: 64 frame pairs from 8 seeded scenes.
     t = time.perf_counter()
-    scenes = [scene_uint8(synth_scene(np.random.default_rng(s), ROWS, COLS, rich_background=True)[0])
-              for s in range(SCENES)]
-    frames_a = np.stack([np.roll(sc, i, axis=0) for sc in scenes for i in range(BATCH // SCENES)])
-    frames_b = np.roll(frames_a, 3, axis=2)
+    scenes, frames_a, frames_b = main_frames()
     emit("frames", shape=list(frames_a.shape), seconds=time.perf_counter() - t)
-    opts = DetectorOptions(min_feature_distance=RADIUS, min_valid_response=10.0, max_features=PICKS)
+    opts = DetectorOptions(**MAIN_DETECTOR)
     bopts, mopts = BriefOptions(), MatcherOptions()
     ja = torch.from_numpy(frames_a).to(dev)
     jb = torch.from_numpy(frames_b).to(dev)
@@ -1978,6 +2724,24 @@ def main() -> int:
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the card(s).")
+    ap.add_argument("--world", type=int, default=1,
+                    help="1 (default): every phase on one card; N > 1: the multi-device paths on N cards, one "
+                         "process each, held against one card")
+    ap.add_argument("--rank-process", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.world < 1:
+        ap.error("--world must be at least 1")
+    if args.rank_process:
+        return rank_main(args.world)
+    if args.world > 1:
+        return world_main(args.world)
+    return single_card_main()
 
 
 if __name__ == "__main__":

@@ -23,14 +23,15 @@ in float32 with one refinement step, the global BA in float64; products
 never run in TF32 (the entry refuses it).  The RANSAC draws come from a CPU
 ``torch.Generator`` (``geometry.ransac_gumbel``), the same on every device.
 
-With ``mesh`` (a ``DeviceMesh``, one rank per device) the chunk batch
-splits over the mesh's first axis, padded with empty chunk problems to a
-multiple of it, each rank solving its contiguous block and the solutions
-all-gathered; the global BA runs landmark-sharded
-(``ba.make_distributed_ba``).  Every other stage runs replicated on every
-rank, the same on each: the RANSAC draws come from the CPU generator, and
-the chunk solver takes one set of draws for all chunks, so a rank's block
-sees the draws the whole batch would.
+With ``mesh`` (a ``DeviceMesh``, one rank per device) the global BA runs
+landmark-sharded (``ba.make_distributed_ba``).  Every other stage runs
+replicated on every rank, the same on each, the chunk solves included: the
+RANSAC draws come from the CPU generator, and the whole chunk batch is
+solved on every rank.  (The JAX package splits the chunk batch over the
+mesh.  On the card the chunk solver's batched products, sums and LU round
+by the batch size, so a rank's share of the chunks parted from one
+device's solutions; and the solve is host-paced, so a share took about as
+long as the whole batch.)
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ import torch
 from ..core.config import BAOptions, BriefOptions, DetectorOptions, MatcherOptions
 from ..core.device import DeviceLike, as_tensor
 from ..match.hamming import match_hamming
-from ..parallel.mesh import gather_leading, mesh_device, shard_leading
+from ..parallel.mesh import mesh_device
 from ..utils.log import report_warn
 from . import geometry
 from .ba import BAProblem, _ba_solve_impl, _poses_per_obs, ba_solve, check_no_tf32, make_distributed_ba
@@ -188,20 +189,6 @@ def solve_chunks(track_uv, track_has, cam: Pinhole, min_corr: int, n_rounds: int
     rots, trans, pts, has_pt = (torch.where(pick_a.reshape(K, *([1] * (x.dim() - 2))), x[:, 0], x[:, 1])
                                 for x in (rots, trans, pts, has_pt))
     return rots, trans, pts, has_pt, chunk_ok, torch.where(pick_a, j_a, j_b)
-
-
-def solve_chunk_batch(track_uv, track_has, cam: Pinhole, min_corr: int, n_rounds: int, ba_opts: BAOptions,
-                      gate_px: float, mesh=None):
-    """``solve_chunks`` over the whole batch, or with ``mesh`` over the
-    ranks of its first axis: the K chunks pad to a multiple of the axis with
-    empty problems (no tracks: their init fails), each rank solves its
-    contiguous block, and the blocks are all-gathered and cut back to K."""
-    if mesh is None:
-        return solve_chunks(track_uv, track_has, cam, min_corr, n_rounds, ba_opts, gate_px)
-    axis = mesh.mesh_dim_names[0]
-    out = solve_chunks(shard_leading(track_uv, mesh, axis, 0.0), shard_leading(track_has, mesh, axis, False), cam,
-                       min_corr, n_rounds, ba_opts, gate_px)
-    return tuple(gather_leading(x, mesh, axis)[:track_uv.shape[0]] for x in out)
 
 
 # --------------------------------------------------------------------------
@@ -508,9 +495,8 @@ def run_visual_odometry_fused(
     starts = chunk_starts(n, chunk, overlap)
     K = len(starts)
     track_uv_k, track_has_k = chunk_problems(tracks, uv_np, starts, chunk, max_tracks_per_chunk)
-    c_rots, c_trans, c_pts, c_haspt, c_ok, _ = solve_chunk_batch(
-        as_tensor(track_uv_k, dev), as_tensor(track_has_k, dev), cam, min_corr, n_rounds, chunk_ba_opts, gate_px,
-        mesh)
+    c_rots, c_trans, c_pts, c_haspt, c_ok, _ = solve_chunks(
+        as_tensor(track_uv_k, dev), as_tensor(track_has_k, dev), cam, min_corr, n_rounds, chunk_ba_opts, gate_px)
     c_rots = c_rots.cpu().numpy()
     c_trans = c_trans.cpu().numpy()
     c_pts = c_pts.cpu().numpy()

@@ -170,6 +170,33 @@ def test_lsd_flood_kernel_equals_ref(cuda):
     assert len(torch.unique(labels[valid])) < int(valid.sum())
 
 
+def test_kernels_on_every_card_equal_ref():
+    """K1/K2 and K3 on cuda:3, cuda:0, cuda:2 and cuda:1 in one process:
+    each ctypes library carries its own CUDA runtime and must launch on the
+    card of the tensors it is given (the wrapper makes that card current),
+    not on the first card it saw.  Equal to the plain version on every
+    card.  Skips with fewer than four cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    rng = np.random.default_rng(3)
+    maps = rng.random((4, 96, 150), np.float32)
+    maps[maps < 0.7] = 0.0
+    for i in (3, 0, 2, 1):
+        dev = torch.device("cuda", i)
+        cand = torch.from_numpy(maps).to(dev)
+        got = greedy_select(cand, 40, 40, 6)
+        torch.cuda.synchronize(dev)
+        assert all(g.device == dev for g in got)
+        for g, w in zip(got, greedy_select_ref(cand, 40, 40, 6)):
+            assert torch.equal(g, w), f"greedy on {dev}"
+        norm, angle, valid = _flood_maps(dev)
+        state = LF.initial_state(norm, angle, valid)
+        got = LF.running_sweeps(angle, valid, state, 33, TOL)
+        torch.cuda.synchronize(dev)
+        for g, w in zip(got, LF.running_sweeps_ref(angle, valid, state, 33, TOL)):
+            assert torch.equal(g, w), f"flood on {dev}"
+
+
 def _few_live_tiles(h=130, w=200):
     """Valid pixels in three 32-px tiles (one across a tile edge), every other
     tile all invalid."""

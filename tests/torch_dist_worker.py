@@ -1,13 +1,14 @@
 """One rank of the multi-process tests of the port's parallel package
-(tests/test_torch_parallel.py, tests/test_torch_vo_mesh.py) and of its
-data-parallel training step (tests/test_torch_train.py).
+(tests/test_torch_parallel.py, tests/test_torch_vo_mesh.py,
+tests/test_torch_chip_world.py) and of its data-parallel training step
+(tests/test_torch_train.py).
 
     python -m tests.torch_dist_worker CASE WORLD RANK PORT WORKDIR
 
 Joins a gloo group of WORLD ranks through ``parallel.distributed.initialize``
 (coordinator localhost:PORT), reads its inputs from WORKDIR/inputs.npz, runs
-CASE ("parallel", "vo" or "train") on a 1-D CPU mesh and writes what it computed to
-WORKDIR/rank{RANK}.npz.  It imports nothing of JAX: the tests make the
+CASE ("parallel", "vo", "train" or "graft") on a 1-D CPU mesh and writes
+what it computed to WORKDIR/rank{RANK}.npz.  It imports nothing of JAX: the tests make the
 inputs and compare the results.  ``Ranks`` starts the ranks from a test.
 """
 
@@ -38,7 +39,6 @@ from feature_detector_tpu_torch.parallel.mesh import gather_leading, make_mesh, 
 from feature_detector_tpu_torch.slam.ba import make_distributed_ba
 from feature_detector_tpu_torch.slam.camera import Pinhole
 from feature_detector_tpu_torch.slam.sequence import run_visual_odometry_chunked
-from feature_detector_tpu_torch.slam.vo_fused import solve_chunk_batch
 
 THREADS = 1  # per rank: the ranks share the host with the test workers
 BA_CAM = Pinhole(fx=400.0, fy=400.0, cx=376.0, cy=240.0)  # tests/test_slam.py
@@ -103,12 +103,17 @@ def run_vo(mesh, inputs, out):
     res = run_visual_odometry_chunked(inputs["images"], cam, mesh=mesh)
     out.update(positions=res.trajectory.positions, rotations_wc=res.rotations_wc,
                translations_wc=res.translations_wc)
-    chunk_ba = BAOptions(max_iterations=10, huber_delta=2.0, gate_px=3.0, gate_rounds=1)  # the VO's default
-    sol = solve_chunk_batch(torch.from_numpy(inputs["track_uv"]), torch.from_numpy(inputs["track_has"]), cam, 15, 2,
-                            chunk_ba, 3.0, mesh)
-    for name, x in zip(("rot", "trans", "points", "has_pt", "ok", "jstar"), sol):
-        out[f"chunk_{name}"] = x.numpy()
     _ba(out, "dense", make_distributed_ba(mesh, BA_CAM, BAOptions(**BA_DENSE)), _problem(inputs, "dense"))
+
+
+def run_graft(mesh, inputs, out):
+    """The camera-sharded seam case of the JAX package's multi-chip entry:
+    the dense and the camera-sharded distributed BA on problem ``graft``."""
+    cam = Pinhole(*(float(v) for v in inputs["cam"]))
+    opts = BAOptions(max_iterations=int(inputs["max_iterations"]))
+    _ba(out, "dense", make_distributed_ba(mesh, cam, opts), _problem(inputs, "graft"))
+    cg = make_distributed_ba(mesh, cam, opts, camera_shard=True, cg_iterations=int(inputs["cg_iterations"]))
+    _ba(out, "cg", cg, _problem(inputs, "graft"))
 
 
 TRAIN_KEYS = ("image", "label_a", "label_b", "H_ab")
@@ -144,6 +149,8 @@ def main(case: str, world: int, rank: int, port: int, workdir: str) -> None:
             run_vo(mesh, inputs, out)
         elif case == "train":
             run_train(mesh, inputs, out)
+        elif case == "graft":
+            run_graft(mesh, inputs, out)
         else:
             raise ValueError(f"unknown case {case!r}")
     finally:
