@@ -13,21 +13,25 @@ bfloat16, default ``NNDetectorOptions``: 240 features, r = 15) on 8 scenes
 at 640x480 with float matching, and the fused chunked visual odometry
 (``run_visual_odometry_chunked``, default options) on the 120-frame bench
 sequence at 240x320, all on the card.  It builds every CUDA kernel of these
-paths from the sources in the checkout (greedy selection and the LSD region
-flood), holds each against its plain PyTorch version on the card (greedy
-selection also on the VO's own candidate maps), shows through the launch
+paths from the sources in the checkout (greedy selection, the LSD region
+flood, and the chunk solver's fixed-order contraction K4 and LU solve K5),
+holds each against its plain PyTorch version on the card (greedy selection
+also on the VO's own candidate maps, K4 and K5 on the VO's largest calls),
+shows through the launch
 counters that each path went through its kernels, checks the outputs
 against the port's CPU run (the NN post-processing fed the card's maps; the
 bfloat16 forward the path runs, and a float32 forward with TF32 off, each
 against the CPU's; the VO's scan front-end over 8 frames and its global BA
 problem), checks the VO's ATE, compares the card's chunk solutions with the
-CPU's on the same chunk problems, and times it all with CUDA events (each
+CPU's on the same chunk problems, checks that the 17 chunks solved in blocks
+of 5 and of 1 are the whole batch's bits, and times it all with CUDA events (each
 kernel's own device time also with torch.profiler).  Then the multi-device
 paths on an NCCL world of one (phase ``multi``): the frame-parallel
 front-end and two-frame matcher on the main path's frames, the row-sharded
 Harris response, the distributed BA on the VO's global problem (dense and
-camera-sharded) and the VO over the mesh, each held against the one-device
-result, with the greedy launches counted.  Then training (phase ``train``):
+camera-sharded) and the VO over the mesh (its chunk batch split over the
+mesh), each held against the one-device result, with the greedy, K4 and K5
+launches counted.  Then training (phase ``train``):
 SuperPoint (batch 32, 120x160) and DISK (batch 16, 128x160) for 22 bfloat16
 steps each on ``make_batch`` batches (rendered in worker processes), timed by CUDA events and profiled, each first held in float32
 against the CPU's step; the trained SuperPoint through the npz format into
@@ -53,9 +57,12 @@ holds K1 and K2 against their plain version on its card, computes every
 path's one-card result there (held against rank 0's), runs the
 frame-parallel front-end and matcher, the row-sharded Harris response, the
 distributed BA (dense, camera-sharded, and the JAX multi-chip entry's seam
-case of 5 cameras), the VO over the mesh and the data-parallel SuperPoint
-step over the four ranks and holds each against one card, counts K1 and K2
-a rank, and times each path on one card and over the four.  A rank that
+case of 5 cameras), the VO over the mesh (each rank solves 5 of the 17
+chunks padded to 20; its trajectory is one card's, bit for bit) and the
+data-parallel SuperPoint step over the four ranks and holds each against
+one card, counts K1, K2, K4 and K5 a rank (K4 and K5 also held against their
+plain version on the rank's largest calls), and times each path on one
+card and over the four.  A rank that
 fails, or the wall limit, stops every rank and the run prints no result.
 
 One JSON line per phase.  Before the last line: one JSON object describing
@@ -67,7 +74,9 @@ and the script exits non-zero without that line; so does a machine where
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -82,6 +91,10 @@ PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 SOURCE = "feature_detector_tpu_torch/kernels/csrc/greedy.cu"
 LSD_SOURCE = "feature_detector_tpu_torch/kernels/csrc/lsd_flood.cu"
+FIXED_SOURCE = "feature_detector_tpu_torch/kernels/csrc/fixed_order.cu"
+FIXED_REPLACES = ("none (added for the chunk solver: batch-invariant arithmetic, "
+                  "feature_detector_tpu_torch/slam/fixed.py)")
+FIXED_KERNELS = {"fixed_contract": ("contract_serial", "contract_lanes"), "fixed_lu_solve": ("lu_solve_kernel",)}
 LSD_BUDGET = 100
 LSD_SWEEPS_ODD = 330  # a sweep count that is no multiple of the sweeps per launch
 SEAM_ROWS, SEAM_COLS = 97, 151  # a map size that is no multiple of any tile
@@ -106,6 +119,8 @@ VO_HARRIS_REL = 1e-4  # a feature whose Harris response is within this of the th
 VO_BA_POSE_ATOL = 1e-4  # global BA (solved in float64) on the card against the CPU: rotations, centers / span
 VO_BA_POINT_ATOL = 1e-3  # the same for points, relative to the span
 VO_TOP_KERNELS = 8
+VO_ATE_SHARE_LIBRARY = 0.01104  # the VO's ATE over the span on an H100 when the chunk solver used cuBLAS and cuSOLVER
+VO_CHUNK_BLOCKS = (5, 1)  # the chunk batch solved in blocks of these sizes against the whole batch, bit for bit
 # The card's chunk solutions against the CPU's on the same chunk problems and draws, per chunk up to its
 # monocular scale: rotations, and camera centers and points over the chunk's largest center distance.
 VO_CHUNK_ROT_ATOL, VO_CHUNK_CENTER_ATOL, VO_CHUNK_POINT_ATOL = 1e-3, 1e-3, 1e-2
@@ -604,6 +619,7 @@ def vo_phase(torch, dev, smi):
     from feature_detector_tpu_torch.core.config import BriefOptions, DetectorOptions, HarrisOptions
     from feature_detector_tpu_torch.core.types import Features
     from feature_detector_tpu_torch.frontend.detector import detection_maps
+    from feature_detector_tpu_torch.kernels import fixed_order as FO
     from feature_detector_tpu_torch.kernels.detect import greedy_select_ref, harris_response_raw
     from feature_detector_tpu_torch.kernels.greedy import greedy_select
     from feature_detector_tpu_torch.slam import geometry
@@ -626,15 +642,19 @@ def vo_phase(torch, dev, smi):
     gt = seq.trajectory.positions
     span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
 
-    # Cold run, counted: every frame's top-up detection is one greedy call.
+    # Cold run, counted: every frame's top-up detection is one greedy call; the chunk solver's products, sums and
+    # solves go through K4 and K5 (the largest call of each is kept for the kernel checks below).
     torch.cuda.synchronize()
-    greedy_select.launches = 0
+    greedy_select.launches = FO.fixed_contract.launches = FO.fixed_lu_solve.launches = 0
     t0 = time.perf_counter()
-    res = run_visual_odometry_chunked(imgs, seq.cam)
+    with largest_fixed_calls(torch) as fixed_calls, chunk_blocks() as blocks:
+        res = run_visual_odometry_chunked(imgs, seq.cam)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = greedy_select.launches
+    fixed_launches = {"contract": FO.fixed_contract.launches, "lu_solve": FO.fixed_lu_solve.launches}
     check(launches == 2 * VO_FRAMES, f"VO path launched the greedy kernels {launches} times, not 2 x {VO_FRAMES}")
+    check(all(v > 0 for v in fixed_launches.values()), f"VO path launched K4/K5 {fixed_launches} times")
     pos = res.trajectory.positions
     check(len(res.trajectory) == VO_FRAMES and pos.shape == (VO_FRAMES, 3) and bool(np.isfinite(pos).all()),
           "VO trajectory: finite, one pose a frame")
@@ -738,8 +758,12 @@ def vo_phase(torch, dev, smi):
              and ba_err["point_max_abs_err_over_span"] <= VO_BA_POINT_ATOL)
 
     # The card's chunk solutions against the CPU's: the chunk problems of the
-    # card's own front-end, solved on both with the same draws.
+    # card's own front-end, solved on both with the same draws; and on the
+    # card in blocks against the whole batch.
     chunk_cmp = vo_chunks_card_vs_cpu(torch, dev, seq, imgs)
+
+    # K4 and K5 against their plain versions on the VO's largest calls (not counted).
+    fixed_entries, fixed_exact = fixed_kernel_entries(torch, fixed_calls, fixed_launches, "the fused VO's chunk solver")
 
     # The RANSAC draws: CPU generator, copied to the card.
     draws_equal = all(torch.equal(geometry.ransac_gumbel(0, r, n, dev).cpu(), geometry.ransac_gumbel(0, r, n, "cpu"))
@@ -751,6 +775,8 @@ def vo_phase(torch, dev, smi):
          landmarks=VO_LANDMARKS, seed=VO_SEED, render_s=render_s, cold_run_s=cold_s,
          frames_per_s_wall=VO_FRAMES / mean("wall_s"), frames_per_s_events=VO_FRAMES / mean("event_s"),
          runs=runs, stage_s_mean=stage_means, ate_m=ate, span_m=span, ate_share_of_span=ate / span,
+         ate_share_of_span_library_solver=VO_ATE_SHARE_LIBRARY, chunk_blocks_cold_run=blocks,
+         fixed_launches=fixed_launches, fixed_exact=fixed_exact,
          num_tracks=res.num_tracks, mean_track_length=res.mean_track_length, points=int(len(res.points)),
          global_ba_tracks_padded=int(prob.points.shape[0]), greedy_launches=launches,
          profiled_run_event_ms=prof_event_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / prof_event_ms,
@@ -762,13 +788,172 @@ def vo_phase(torch, dev, smi):
          global_ba_cpu_s=cpu_ba_s, ransac_draws_equal=draws_equal, chunks_card_vs_cpu=chunk_cmp)
     check(ba_ok, f"global BA on the card differs from the CPU's: {ba_err}")
     check(draws_equal, "RANSAC draws differ between the card and the CPU")
+    check(all(fixed_exact.values()), f"K4/K5 != plain on the VO's largest calls: {fixed_exact}")
+    check(all(chunk_cmp["chunk_blocks_equal"].values()),
+          f"chunks solved in blocks differ from the whole batch: {chunk_cmp['chunk_blocks_equal']}")
     k2 = {"launches": launches, "max_abs_err": k2_err, "ms": float(np.mean(k2_ms)),
           "device_ms": float(np.mean(k2_dev_ms)), "plain_ms": float(np.mean(k2_plain_ms)),
           "bound_ms": greedy_bound_ms(1, int(seq.images.shape[1]), int(seq.images.shape[2]), 200),
           "maps": [f"frame {f}" for f in VO_K2_FRAMES]}
     run = {"seq": seq, "imgs": imgs, "result": res, "ate_m": ate, "span_m": span, "ba_opts": ba_opts,
-           "global_ba_card": card_ba, "frames_per_s_wall": VO_FRAMES / mean("wall_s")}
-    return k2, run
+           "global_ba_card": card_ba, "frames_per_s_wall": VO_FRAMES / mean("wall_s"),
+           "chunk_solve_s": stage_means["chunk_solve"]}
+    return k2, run, fixed_entries
+
+
+@contextlib.contextmanager
+def largest_fixed_calls(torch):
+    """While open, the SLAM layer's K4 and K5 calls (``slam/fixed.py``) keep
+    a clone of the operands of their largest call each: "contract" by
+    multiply-adds, "sum" by terms, "lu_solve" by systems x n^3.  Yields the
+    dict of (work, operands) they fill."""
+    from feature_detector_tpu_torch.slam import fixed as SF
+
+    kept = {}
+    names = {"contract": "fixed_contract", "sum": "fixed_sum", "lu_solve": "fixed_lu_solve"}
+    work = {"contract": lambda a, c: math.prod(torch.broadcast_shapes(a.shape[:-2], c.shape[:-2])) * a.shape[-2]
+            * a.shape[-1] * c.shape[-1],
+            "sum": lambda x: x.numel(),
+            "lu_solve": lambda a, b: math.prod(torch.broadcast_shapes(a.shape[:-2], b.shape[:-1])) * a.shape[-1] ** 3}
+    saved = {key: getattr(SF, name) for key, name in names.items()}
+
+    def spy(key):
+        def call(*args):
+            w = work[key](*args)
+            if w > kept.get(key, (0,))[0]:
+                kept[key] = (w, tuple(x.clone() for x in args))
+            return saved[key](*args)
+        return call
+
+    for key, name in names.items():
+        setattr(SF, name, spy(key))
+    try:
+        yield kept
+    finally:
+        for key, name in names.items():
+            setattr(SF, name, saved[key])
+
+
+@contextlib.contextmanager
+def chunk_blocks():
+    """While open, records how many chunk problems each call of the fused
+    VO's ``solve_chunks`` is handed.  Yields the list."""
+    from feature_detector_tpu_torch.slam import vo_fused
+
+    solve, blocks = vo_fused.solve_chunks, []
+
+    def counted(track_uv, *args, **kwargs):
+        blocks.append(int(track_uv.shape[0]))
+        return solve(track_uv, *args, **kwargs)
+
+    vo_fused.solve_chunks = counted
+    try:
+        yield blocks
+    finally:
+        vo_fused.solve_chunks = solve
+
+
+def same_bits(torch, got, want) -> bool:
+    """Equal bit for bit, a NaN equal to a NaN."""
+    return got.shape == want.shape and bool(((got == want) | (got.isnan() & want.isnan())).all())
+
+
+def fixed_bound(nbytes: int, ops: int):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    card's memory rate and the float32 operations over its peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def traced_kernel_ms(torch, calls: dict, iters: int) -> dict:
+    """For each name of ``calls`` (name -> (fn, kernel names)), the device
+    time per call, in ms, of the CUDA kernels whose names contain one of its
+    kernel names, from the raw trace of one torch.profiler session that
+    makes ``iters`` calls of each fn in turn (``traced_device_ms``); None
+    where the trace holds none of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn, _ in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn, _ in calls.values():
+            for _ in range(iters):
+                fn()
+        torch.cuda.synchronize()
+    per_kernel, _ = traced_device_ms(torch, prof)
+    out = {}
+    for name, (_, kernels) in calls.items():
+        total = sum(ms for k, ms in per_kernel.items() if any(n in k for n in kernels))
+        out[name] = total / iters if total > 0 else None
+    if None in out.values():
+        print(f"chip_smoke: a kernel of {calls.keys()} is missing from the trace, which holds {sorted(per_kernel)[:8]}",
+              file=sys.stderr, flush=True)
+    return out
+
+
+def fixed_kernel_entries(torch, calls: dict, launches: dict, path: str) -> tuple:
+    """K4 and K5 against their plain versions, bit for bit, on the operands
+    of the largest calls ``largest_fixed_calls`` kept on ``path``, and
+    timed there (kernel, plain version, and one PyTorch call computing the
+    same function as yardstick: ``torch.matmul``, ``torch.sum``,
+    ``torch.linalg.solve_ex``; the port never calls them there).  Returns
+    (the two kernel-line entries, whether every comparison held)."""
+    from feature_detector_tpu_torch.kernels import fixed_order as FO
+
+    a, c = calls["contract"][1]
+    (x,) = calls["sum"][1]
+    s, rhs = calls["lu_solve"][1]
+    got, want = FO.fixed_contract(a, c), FO.contract_ref(a, c)
+    got_sum, want_sum = FO.fixed_sum(x), FO.sum_ref(x)
+    got_lu, want_lu = FO.fixed_lu_solve(s, rhs), FO.lu_solve_ref(s, rhs)
+    torch.cuda.synchronize()
+    exact = {"contract": same_bits(torch, got, want), "sum": same_bits(torch, got_sum, want_sum),
+             "lu_solve": same_bits(torch, got_lu, want_lu)}
+    err = lambda g, w: float((g - w).abs().nan_to_num(0.0).max()) if g.numel() else 0.0
+    saved = FO.fixed_contract.launches, FO.fixed_lu_solve.launches
+    batch = math.prod(torch.broadcast_shapes(a.shape[:-2], c.shape[:-2]))
+    (m, k), n = a.shape[-2:], c.shape[-1]
+    k4_bound = fixed_bound(4 * (a.numel() + c.numel() + got.numel()), 2 * batch * m * n * k)
+    n_sys, n_lu = math.prod(torch.broadcast_shapes(s.shape[:-2], rhs.shape[:-1])), s.shape[-1]
+    k5_bound = fixed_bound(4 * (s.numel() + rhs.numel() + got_lu.numel()), n_sys * (2 * n_lu ** 3 // 3 + 2 * n_lu ** 2))
+    lib_solve = lambda: torch.linalg.solve_ex(s, rhs[..., None])
+    dev_ms = traced_kernel_ms(torch, {"contract": (lambda: FO.fixed_contract(a, c), FIXED_KERNELS["fixed_contract"]),
+                                      "lu_solve": (lambda: FO.fixed_lu_solve(s, rhs), FIXED_KERNELS["fixed_lu_solve"])},
+                              10)
+    k4 = {"name": "fixed_contract (K4)", "route": "cuda", "source": FIXED_SOURCE, "replaces": FIXED_REPLACES,
+          "launches": launches["contract"], "max_abs_err": max(err(got, want), err(got_sum, want_sum)),
+          "ms": cuda_ms(torch, lambda: FO.fixed_contract(a, c), 20),
+          "device_ms": dev_ms["contract"],
+          "plain_ms": cuda_ms(torch, lambda: FO.contract_ref(a, c), 3),
+          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+          "library_ms": cuda_ms(torch, lambda: torch.matmul(a, c), 20),
+          "shape": {"a": list(a.shape), "c": list(c.shape)}, "path": path,
+          "largest_sum": {"shape": list(x.shape), "ms": cuda_ms(torch, lambda: FO.fixed_sum(x), 20),
+                          "plain_ms": cuda_ms(torch, lambda: FO.sum_ref(x), 3),
+                          "library_ms": cuda_ms(torch, lambda: x.sum(-1), 20),
+                          "bound_ms": fixed_bound(4 * (x.numel() + got_sum.numel()), x.numel())[0]}}
+    k5 = {"name": "fixed_lu_solve (K5)", "route": "cuda", "source": FIXED_SOURCE, "replaces": FIXED_REPLACES,
+          "launches": launches["lu_solve"], "max_abs_err": err(got_lu, want_lu),
+          "ms": cuda_ms(torch, lambda: FO.fixed_lu_solve(s, rhs), 20),
+          "device_ms": dev_ms["lu_solve"],
+          "plain_ms": cuda_ms(torch, lambda: FO.lu_solve_ref(s, rhs), 2),
+          "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": cuda_ms(torch, lib_solve, 20),
+          "shape": {"a": list(s.shape), "b": list(rhs.shape)}, "path": path,
+          "note": "latency-bound: a chain of n pivot steps, each two or three block barriers"}
+    FO.fixed_contract.launches, FO.fixed_lu_solve.launches = saved
+    return (k4, k5), exact
+
+
+def vo_chunk_starts() -> list:
+    """The fused VO's chunk starts on the bench sequence (default chunk and
+    overlap): 17 chunks at 120 frames."""
+    import inspect
+
+    from feature_detector_tpu_torch.slam.vo_fused import chunk_starts, run_visual_odometry_fused
+
+    d = {k: v.default for k, v in inspect.signature(run_visual_odometry_fused).parameters.items()}
+    return chunk_starts(VO_FRAMES, d["chunk"], d["overlap"])
 
 
 def vo_chunk_problems(torch, seq, imgs) -> tuple:
@@ -839,7 +1024,9 @@ def vo_chunks_card_vs_cpu(torch, dev, seq, imgs) -> dict:
     CPU generator), held chunk by chunk (``chunk_agreement``).  A
     measurement of where the card's run and the CPU's part, not a check:
     the chunk solver runs in float32, and a few chunks of this sequence
-    sit between two basins."""
+    sit between two basins.  Then on the card in blocks of each
+    VO_CHUNK_BLOCKS size against the whole batch (``chunk_blocks_equal``,
+    which the caller checks)."""
     from feature_detector_tpu_torch.slam.vo_fused import solve_chunks
 
     track_uv, track_has, args, starts, chunk = vo_chunk_problems(torch, seq, imgs)
@@ -851,9 +1038,23 @@ def vo_chunks_card_vs_cpu(torch, dev, seq, imgs) -> dict:
     cpu = [x.numpy() for x in solve_chunks(torch.from_numpy(track_uv), torch.from_numpy(track_has), *args)]
     cpu_s = time.perf_counter() - t0
     per_chunk = chunk_agreement(seq, starts, chunk, card, cpu)
+    # The same problems on the card in blocks (padded with empty problems to a multiple of the block, as the
+    # mesh pads them), against the whole batch, bit for bit.
+    tu, th = torch.from_numpy(track_uv).to(dev), torch.from_numpy(track_has).to(dev)
+    blocks_equal, block_s = {}, {}
+    for block in VO_CHUNK_BLOCKS:
+        pad = -len(tu) % block
+        pu = torch.cat([tu, tu.new_zeros((pad, *tu.shape[1:]))])
+        ph = torch.cat([th, th.new_zeros((pad, *th.shape[1:]))])
+        t0 = time.perf_counter()
+        parts = [solve_chunks(pu[i:i + block], ph[i:i + block], *args) for i in range(0, len(pu), block)]
+        got = [torch.cat(p)[:len(tu)].cpu().numpy() for p in zip(*parts)]
+        block_s[block] = time.perf_counter() - t0
+        blocks_equal[block] = all(np.array_equal(g, w, equal_nan=g.dtype.kind == "f") for g, w in zip(got, card))
     return {"chunks": len(per_chunk), "within": sum(c["within"] for c in per_chunk),
             "tolerance": {"rot": VO_CHUNK_ROT_ATOL, "center": VO_CHUNK_CENTER_ATOL, "point": VO_CHUNK_POINT_ATOL},
-            "card_solve_s": card_s, "cpu_solve_s": cpu_s, "per_chunk": per_chunk}
+            "card_solve_s": card_s, "cpu_solve_s": cpu_s, "per_chunk": per_chunk,
+            "chunk_blocks_equal": blocks_equal, "chunk_block_solve_s": block_s}
 
 
 def multi_phase(torch, dev, smi, main: dict, vo: dict):
@@ -883,6 +1084,7 @@ def _multi_paths(torch, dev, smi, mesh, main: dict, vo: dict, t_phase: float):
     from feature_detector_tpu_torch.core.config import BAOptions, DetectorOptions
     from feature_detector_tpu_torch.core.types import Features
     from feature_detector_tpu_torch.frontend.detector import detection_maps
+    from feature_detector_tpu_torch.kernels import fixed_order as FO
     from feature_detector_tpu_torch.kernels.detect import (
         fast_candidates,
         fast_response,
@@ -974,18 +1176,23 @@ def _multi_paths(torch, dev, smi, mesh, main: dict, vo: dict, t_phase: float):
     check(cg_ba_ok(ba["camera_shard"]),
           f"distributed BA (camera-sharded) parts from ba_solve on the card: {ba['camera_shard']}")
 
-    # The VO over the mesh (K2, counted) against phase vo's run.
+    # The VO over the mesh (K2, K4 and K5 counted) against phase vo's run: the chunk batch split over the
+    # mesh (a world of one: one block of every chunk).
     imgs = vo["imgs"]
     torch.cuda.synchronize()
-    greedy_select.launches = 0
+    greedy_select.launches = FO.fixed_contract.launches = FO.fixed_lu_solve.launches = 0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    stages = {}
     t0 = time.perf_counter()
     start.record()
-    res = run_visual_odometry_chunked(imgs, seq.cam, mesh=mesh)
+    with chunk_blocks() as blocks:
+        res = run_visual_odometry_chunked(imgs, seq.cam, mesh=mesh, stage_seconds=stages)
     end.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     k2_vo = greedy_select.launches
+    fixed_vo = {"contract": FO.fixed_contract.launches, "lu_solve": FO.fixed_lu_solve.launches}
+    n_chunks = len(vo_chunk_starts())
     check(k2_vo == 2 * VO_FRAMES, f"VO over the mesh launched the greedy kernels {k2_vo} times, not 2 x {VO_FRAMES}")
     pos, want_pos = res.trajectory.positions, vo["result"].trajectory.positions
     check(pos.shape == want_pos.shape and bool(np.isfinite(pos).all()), "VO over the mesh: finite, one pose a frame")
@@ -996,8 +1203,14 @@ def _multi_paths(torch, dev, smi, mesh, main: dict, vo: dict, t_phase: float):
                  "frames_per_s_events": VO_FRAMES / (start.elapsed_time(end) / 1e3),
                  "phase_vo_frames_per_s_wall": vo["frames_per_s_wall"], "ate_m": ate, "phase_vo_ate_m": vo["ate_m"],
                  "ate_share_of_span": ate / span, "position_max_abs_err_over_span": pos_err,
-                 "tolerance_over_span": MULTI_VO_POS_ATOL, "greedy_launches": k2_vo}
+                 "tolerance_over_span": MULTI_VO_POS_ATOL, "greedy_launches": k2_vo,
+                 "bitwise": bool(np.array_equal(pos, want_pos)), "chunk_blocks": blocks, "chunks": n_chunks,
+                 "chunk_solve_s": stages["chunk_solve"], "phase_vo_chunk_solve_s": vo["chunk_solve_s"],
+                 "fixed_launches": fixed_vo}
     check(pos_err <= MULTI_VO_POS_ATOL, f"VO over the mesh parts from phase vo's run by {pos_err} of the span")
+    check(out["vo"]["bitwise"], "VO over the mesh differs from phase vo's run")
+    check(blocks == [n_chunks], f"VO over a mesh of one: chunk blocks {blocks}, not [{n_chunks}]")
+    check(all(v > 0 for v in fixed_vo.values()), f"VO over the mesh launched K4/K5 {fixed_vo} times")
     check(f"{ate:.4f}" == f"{vo['ate_m']:.4f}", f"VO over the mesh: ATE {ate:.4f} m, phase vo {vo['ate_m']:.4f} m")
 
     # K2 against its plain version on the VO's first top-up map (not counted).
@@ -1012,7 +1225,7 @@ def _multi_paths(torch, dev, smi, mesh, main: dict, vo: dict, t_phase: float):
     out["seconds"] = time.perf_counter() - t_phase
     emit("multi", greedy_launches_batched_frontend=k1_frontend, greedy_launches_two_frame_matcher=k1_matcher, **out)
     return ({"launches_batched_frontend": k1_frontend, "launches_two_frame_matcher": k1_matcher, "max_abs_err": k1_err},
-            {"launches_vo_over_mesh": k2_vo, "max_abs_err": k2_err})
+            {"launches_vo_over_mesh": k2_vo, "max_abs_err": k2_err}, fixed_vo)
 
 
 def _render_batch(job):
@@ -2128,6 +2341,7 @@ def world_rank(torch, dev, mesh, rank: int, world: int) -> dict:
     from feature_detector_tpu_torch.core.config import BAOptions, BriefOptions, DetectorOptions, MatcherOptions
     from feature_detector_tpu_torch.core.types import Features
     from feature_detector_tpu_torch.frontend.detector import detect_good_features_batch, detection_maps
+    from feature_detector_tpu_torch.kernels import fixed_order as FO
     from feature_detector_tpu_torch.kernels.brief import brief_compute
     from feature_detector_tpu_torch.kernels.detect import (
         fast_candidates,
@@ -2198,7 +2412,8 @@ def world_rank(torch, dev, mesh, rank: int, world: int) -> dict:
     span = float(np.linalg.norm(gt.max(0) - gt.min(0)))
     torch.cuda.synchronize()
     greedy_select.launches = 0
-    vo_one = run_visual_odometry_chunked(imgs, seq.cam)
+    stages_one_cold = {}
+    vo_one = run_visual_odometry_chunked(imgs, seq.cam, stage_seconds=stages_one_cold)
     torch.cuda.synchronize()
     k2_one = greedy_select.launches
     expect(k2_one == 2 * VO_FRAMES, f"rank {rank}: the one-card VO launched K2 {k2_one} times, not 2 x {VO_FRAMES}")
@@ -2337,14 +2552,21 @@ def world_rank(torch, dev, mesh, rank: int, world: int) -> dict:
     expect(cg_ba_ok(ba["camera_shard"]) and cg_ba_ok(ba["graft_camera_shard"], ba["graft_initial_cost"]),
           f"rank {rank}: the camera-sharded BA parts from ba_solve: {ba['camera_shard']}, {ba['graft_camera_shard']}")
 
-    # The VO over the mesh (K2 counted) against one card's.
+    # The VO over the mesh (K2, K4 and K5 counted) against one card's: this rank solves its block of the chunk
+    # batch (padded with empty problems to a multiple of the world); the largest K4 and K5 calls are kept.
     torch.cuda.synchronize()
-    greedy_select.launches = 0
+    greedy_select.launches = FO.fixed_contract.launches = FO.fixed_lu_solve.launches = 0
     stages_cold = {}
-    vo_mesh = run_visual_odometry_chunked(imgs, seq.cam, mesh=mesh, stage_seconds=stages_cold)
+    with largest_fixed_calls(torch) as fixed_calls, chunk_blocks() as blocks:
+        vo_mesh = run_visual_odometry_chunked(imgs, seq.cam, mesh=mesh, stage_seconds=stages_cold)
     torch.cuda.synchronize()
     k2_mesh = greedy_select.launches
+    fixed_mesh = {"contract": FO.fixed_contract.launches, "lu_solve": FO.fixed_lu_solve.launches}
+    n_chunks = len(vo_chunk_starts())
     expect(k2_mesh == 2 * VO_FRAMES, f"rank {rank}: the VO over the mesh launched K2 {k2_mesh} times, not 2 x {VO_FRAMES}")
+    expect(blocks == [-(-n_chunks // world)], f"rank {rank}: solve_chunks was handed {blocks} chunk problems, not "
+           f"[{-(-n_chunks // world)}] of {n_chunks} padded to {-(-n_chunks // world) * world}")
+    expect(all(v > 0 for v in fixed_mesh.values()), f"rank {rank}: the VO over the mesh launched K4/K5 {fixed_mesh}")
     pos = vo_mesh.trajectory.positions
     expect(pos.shape == (VO_FRAMES, 3) and bool(np.isfinite(pos).all()), f"rank {rank}: VO over the mesh not finite")
     ate_mesh = float(ate_rmse(pos, gt, with_scale=True))
@@ -2353,10 +2575,16 @@ def world_rank(torch, dev, mesh, rank: int, world: int) -> dict:
     res["vo"] = {"ate_m": ate_mesh, "ate_share_of_span": ate_mesh / span, "one_card_ate_m": ate_one,
                  "position_max_abs_err_over_span": pos_err, "tolerance_over_span": MULTI_VO_POS_ATOL,
                  "bitwise": bool(np.array_equal(pos, vo_one.trajectory.positions)), "greedy_launches": k2_mesh,
-                 "ranks_bitwise": ranks_agree, "stages_cold_s": stages_cold}
+                 "ranks_bitwise": ranks_agree, "stages_cold_s": stages_cold, "chunk_blocks": blocks,
+                 "chunks": n_chunks, "chunk_solve_s": stages_cold["chunk_solve"],
+                 "one_card_chunk_solve_s": stages_one_cold["chunk_solve"], "fixed_launches": fixed_mesh}
     expect(ate_mesh <= VO_ATE_SPAN_SHARE * span, f"rank {rank}: VO over the mesh: ATE {ate_mesh} m of {span} m")
     expect(ranks_agree, f"rank {rank}: the VO over the mesh differs from rank 0's")
     expect(pos_err <= MULTI_VO_POS_ATOL, f"rank {rank}: the VO over the mesh parts from one card's: {res['vo']}")
+    expect(res["vo"]["bitwise"], f"rank {rank}: the VO over the mesh is not one card's, bit for bit")
+    fixed_entries, fixed_exact = fixed_kernel_entries(torch, fixed_calls, fixed_mesh, "the VO over the mesh")
+    res["fixed_exact"] = fixed_exact
+    expect(all(fixed_exact.values()), f"rank {rank}: K4/K5 != plain on the VO's largest calls: {fixed_exact}")
 
     # The collectives alone, all ranks after a barrier: the dense BA's packed system (float64, n6^2 + n6 + 1
     # values), the camera-sharded CG's all-gather of a block of rows, SuperPoint's flat float32 gradient.
@@ -2484,7 +2712,9 @@ def world_rank(torch, dev, mesh, rank: int, world: int) -> dict:
           vo_stage_s_one_card=per_rank_steps(stages_one), vo_stage_s_world=per_rank_steps(stages_mesh))
 
     out.update(greedy_launches_frontend=k1_frontend, greedy_launches_matcher=k1_matcher,
-               greedy_launches_vo=k2_mesh, vo_ate_share_of_span=ate_mesh / span,
+               greedy_launches_vo=k2_mesh, vo_chunk_blocks=blocks, vo_chunk_solve_s=stages_cold["chunk_solve"],
+               vo_one_card_chunk_solve_s=stages_one_cold["chunk_solve"], vo_fixed_launches=fixed_mesh,
+               vo_ate_share_of_span=ate_mesh / span,
                vo_position_max_abs_err_over_span=pos_err, vo_bitwise=res["vo"]["bitwise"],
                vo_busy_share=vo_busy["busy_share"], vo_busy_ms=vo_busy["busy_ms"],
                vo_event_ms=vo_busy["event_ms"], vo_nccl_share_of_busy=vo_busy["nccl_share_of_busy"],
@@ -2504,6 +2734,7 @@ def world_rank(torch, dev, mesh, rank: int, world: int) -> dict:
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "device_ms": k2["device_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": greedy_bound_ms(1, int(seq.images.shape[1]), int(seq.images.shape[2]), 200),
          "bound_by": "bytes", "library_ms": None, "path": "the VO over the mesh", "world": world},
+        *({**e, "world": world} for e in fixed_entries),
     ]
     return out
 
@@ -2690,8 +2921,8 @@ def single_card_main() -> int:
 
     lsd_kernel = lsd_phase(torch, dev, scenes, smi)
     nn_k2 = nn_phase(torch, dev, smi)
-    vo_k2, vo_run = vo_phase(torch, dev, smi)
-    multi_k1, multi_k2 = multi_phase(
+    vo_k2, vo_run, (k4, k5) = vo_phase(torch, dev, smi)
+    multi_k1, multi_k2, multi_fixed = multi_phase(
         torch, dev, smi, {"ja": ja, "jb": jb, "opts": opts, "bopts": bopts, "mopts": mopts, "fa": fa, "fb": fb,
                           "da": da, "m": m}, vo_run)
     train_k2 = train_phase(torch, dev, smi)
@@ -2718,6 +2949,8 @@ def single_card_main() -> int:
          "demo_path": demo_k2, "legacy_path": legacy_k2,
          "oracle_path": {"launches": oracle_launches["k2"], "path": "detect, tiles, B = 1 and NN selection against the oracles"}},
         lsd_kernel,
+        {**k4, "multi_path": {"launches": multi_fixed["contract"], "path": "the VO over a mesh of one"}},
+        {**k5, "multi_path": {"launches": multi_fixed["lu_solve"], "path": "the VO over a mesh of one"}},
     ]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

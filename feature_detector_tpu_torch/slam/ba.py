@@ -18,8 +18,11 @@ rounding (a 1e-5 px change of the observations moves a rotation by 1.5e-3
 rad there, by 2.1e-7 rad here: ``tests/test_torch_vo_study.py``), and an H100's
 solve equals the CPU's (``chip_smoke.py``).  ``_ba_solve_impl``
 called directly (the chunk solver) runs in float32 with one step of
-iterative refinement of each solve, as the JAX package does there.  The
-VO entry refuses TF32 matmuls on the card.
+iterative refinement of each solve, as the JAX package does there; there
+(``fixed.batch_invariant``) its products, sums and solves go through K4
+and K5, so a problem's bits do not depend on how many problems share the
+batch.
+The VO entry refuses TF32 matmuls on the card.
 
 ``make_distributed_ba`` is the multi-device solver: landmarks split over a
 mesh axis, one all-reduce of the reduced camera system and the cost per LM
@@ -38,8 +41,9 @@ import torch.distributed as dist
 from ..core.config import BAOptions
 from ..core.device import as_tensor
 from ..parallel.mesh import axis_group, axis_index, axis_size, gather_leading, mesh_device, shard_leading
+from . import fixed
 from .camera import Pinhole, huber_weight, project, projection_jacobian
-from .geometry import solve
+from .fixed import solve
 from .lie import eye3, hat, rotate, se3_update
 from .linalg3 import inv3, solve3
 
@@ -109,9 +113,9 @@ def _per_landmark_blocks(rot, trans, points, obs_cam, obs_uv, cam: Pinhole, opts
     r = project(p, cam) - obs_uv
     jpi = projection_jacobian(p, cam)
     # Left perturbation: dp/dtheta = -[p]x, dp/dt = I, dp/dX = R.
-    jc = torch.cat([-jpi @ hat(p), jpi], dim=-1)
-    jp = jpi @ R
-    w = huber_weight((r * r).sum(-1), opts.huber_delta) * valid
+    jc = torch.cat([-fixed.matmul(jpi, hat(p)), jpi], dim=-1)
+    jp = fixed.matmul(jpi, R)
+    w = huber_weight(fixed.sum(r * r, -1), opts.huber_delta) * valid
     if obs_w is not None:
         w = w * obs_w
     return valid, r, jc, jp, w
@@ -151,28 +155,30 @@ def _assemble(rot, trans, points, obs_cam, obs_uv, cam, opts, n_cams, obs_w=None
     rw = r * sw[..., None]
 
     # Landmark blocks, damped relative to their trace.
-    hpp = torch.einsum("...ldki,...ldkj->...lij", jp, jp)
+    hpp = fixed.einsum("...ldki,...ldkj->...lij", jp, jp)
     tr = hpp[..., 0, 0] + hpp[..., 1, 1] + hpp[..., 2, 2]
     hpp = hpp + (opts.damping * tr + 1e-5)[..., None, None] * eye3(hpp)
-    bp = -torch.einsum("...ldki,...ldk->...li", jp, rw)
+    bp = -fixed.einsum("...ldki,...ldk->...li", jp, rw)
     hpp_inv = inv3(hpp)
 
-    hcc_blk = torch.einsum("...ldki,...ldkj->...ldij", jc, jc)
-    bc_blk = -torch.einsum("...ldki,...ldk->...ldi", jc, rw)
-    wmat = torch.einsum("...ldki,...ldkj->...ldij", jc, jp)  # Jc^T Jp
-    y = wmat @ hpp_inv[..., :, None, :, :]
-    pair = torch.einsum("...ldij,...lekj->...ldeik", y, wmat)  # [..., L, D, D, 6, 6]
+    bc_blk = -fixed.einsum("...ldki,...ldk->...ldi", jc, rw)
+    wmat = fixed.einsum("...ldki,...ldkj->...ldij", jc, jp)  # Jc^T Jp
+    y = fixed.matmul(wmat, hpp_inv[..., :, None, :, :])
     vf = valid.to(jc.dtype)
-    pair_valid = vf[..., :, None] * vf[..., None, :]
     yb = rotate(y, bp[..., :, None, :])
     L, D = obs_cam.shape[-2:]
     if dense_frames:
-        # Slot d is camera d: the scatter collapses to sums over landmarks.
-        s = -torch.einsum("...ldeik,...lde->...diek", pair, pair_valid)
-        s.diagonal(0, -4, -2).add_(torch.einsum("...ldik,...ld->...dik", hcc_blk, vf).movedim(-3, -1))
-        b = torch.einsum("...ldi,...ld->...di", bc_blk - yb, vf)
+        # Slot d is camera d: the scatter collapses to sums over landmarks,
+        # one contraction over (landmark, 3) per block of S.
+        yv, wv = y * vf[..., None, None], wmat * vf[..., None, None]
+        s = -fixed.einsum("...ldij,...lekj->...diek", yv, wv)
+        s.diagonal(0, -4, -2).add_(fixed.einsum("...ldki,...ldkj,...ld->...dij", jc, jc, vf).movedim(-3, -1))
+        b = fixed.einsum("...ldi,...ld->...di", bc_blk - yb, vf)
         cam_idx = torch.arange(D, dtype=torch.int32, device=obs_cam.device).expand(obs_cam.shape)
     else:
+        hcc_blk = fixed.einsum("...ldki,...ldkj->...ldij", jc, jc)
+        pair = fixed.einsum("...ldij,...lekj->...ldeik", y, wmat)  # [..., L, D, D, 6, 6]
+        pair_valid = vf[..., :, None] * vf[..., None, :]
         cam_idx = torch.clamp(obs_cam, 0, n_cams - 1)
         batch = obs_cam.shape[:-2]
         d_idx = cam_idx[..., :, :, None].expand(*batch, L, D, D).reshape(*batch, L * D * D)
@@ -190,10 +196,9 @@ def _apply_dx(rot, trans, points, dx_cam, hpp_inv, bp, wmat, valid, cam_idx, den
     """SE(3) pose update and landmark back-substitution from a solved
     dx_cam: dp = Hpp^-1 (bp - W^T dx_cam(observers))."""
     if dense_frames:
-        dxc = dx_cam[..., None, :, :].expand(*wmat.shape[:-2], 6)
+        wtd = fixed.einsum("...ldij,...di->...lj", wmat * valid[..., None, None], dx_cam)
     else:
-        dxc = take_cams(dx_cam, cam_idx)
-    wtd = torch.einsum("...ldij,...ldi->...lj", wmat * valid[..., None, None], dxc)
+        wtd = fixed.einsum("...ldij,...ldi->...lj", wmat * valid[..., None, None], take_cams(dx_cam, cam_idx))
     rot2, trans2 = se3_update(rot, trans, dx_cam)
     return rot2, trans2, points + rotate(hpp_inv, bp - wtd)
 
@@ -205,11 +210,11 @@ def _solve_and_update(rot, trans, points, S, b, hpp_inv, bp, wmat, valid, cam_id
     if n_fixed is None:
         n_fixed = max(1, min(opts.num_fixed_cameras, n_cams))
     k = 6 * min(max(int(n_fixed), 1), n_cams)
-    fixed = torch.arange(6 * n_cams, device=S.device) < k
-    S = torch.where(fixed[:, None] | fixed[None, :], 0.0, S)
+    gauge = torch.arange(6 * n_cams, device=S.device) < k
+    S = torch.where(gauge[:, None] | gauge[None, :], 0.0, S)
     diag = S.diagonal(dim1=-2, dim2=-1)
-    S.diagonal(dim1=-2, dim2=-1).copy_(torch.where(fixed, 1.0, diag))
-    b = torch.where(fixed, 0.0, b)
+    S.diagonal(dim1=-2, dim2=-1).copy_(torch.where(gauge, 1.0, diag))
+    b = torch.where(gauge, 0.0, b)
     # Levenberg-Marquardt diagonal-relative damping plus an absolute jitter.
     diag = S.diagonal(dim1=-2, dim2=-1).clone()
     S.diagonal(dim1=-2, dim2=-1).add_(lam[..., None] * diag + 1e-6)
@@ -224,7 +229,7 @@ def _solve_and_update(rot, trans, points, S, b, hpp_inv, bp, wmat, valid, cam_id
 def reprojection_cost(problem: BAProblem, cam: Pinhole, opts: BAOptions) -> torch.Tensor:
     valid, r, _, _, w = _per_landmark_blocks(
         problem.rot, problem.trans, problem.points, problem.obs_cam, problem.obs_uv, cam, opts)
-    return ((r * r).sum(-1) * w).sum((-2, -1)) / torch.clamp_min(valid.sum((-2, -1)), 1)
+    return fixed.sum(fixed.sum(r * r, -1) * w, (-2, -1)) / torch.clamp_min(valid.sum((-2, -1)), 1)
 
 
 def _residuals(rot, trans, points, obs_cam, obs_uv, cam, dense_frames: bool):
@@ -235,19 +240,19 @@ def _residuals(rot, trans, points, obs_cam, obs_uv, cam, dense_frames: bool):
 def _cost(rot, trans, points, obs_cam, obs_uv, cam, opts, obs_w=None, dense_frames: bool = False):
     """The true Huber objective, the function the IRLS step minimizes."""
     r = _residuals(rot, trans, points, obs_cam, obs_uv, cam, dense_frames)
-    r2 = (r * r).sum(-1)
+    r2 = fixed.sum(r * r, -1)
     rn = torch.sqrt(torch.clamp_min(r2, 1e-12))
     d = opts.huber_delta
     rho = torch.where(rn <= d, r2, 2.0 * d * rn - d * d)
     mask = (obs_cam >= 0).to(rho.dtype)
     if obs_w is not None:
         mask = mask * obs_w
-    return (rho * mask).sum((-2, -1))
+    return fixed.sum(rho * mask, (-2, -1))
 
 
 def _residual_norms(rot, trans, points, obs_cam, obs_uv, cam, dense_frames: bool = False):
     r = _residuals(rot, trans, points, obs_cam, obs_uv, cam, dense_frames)
-    return torch.sqrt(torch.clamp_min((r * r).sum(-1), 1e-12)), obs_cam >= 0
+    return torch.sqrt(torch.clamp_min(fixed.sum(r * r, -1), 1e-12)), obs_cam >= 0
 
 
 def _masked_median(x, mask):
@@ -289,7 +294,7 @@ def _relandmark(rot, trans, points, obs_cam, obs_uv, cam: Pinhole, gate_px, dens
     rx = (obs_uv[..., 0] - cam.cx) / cam.fx
     ry = (obs_uv[..., 1] - cam.cy) / cam.fy
     rays_w = rotate(R.transpose(-1, -2), torch.stack([rx, ry, torch.ones_like(rx)], -1))
-    rays_w = rays_w / torch.clamp_min(torch.linalg.vector_norm(rays_w, dim=-1, keepdim=True), 1e-12)
+    rays_w = rays_w / torch.clamp_min(fixed.norm(rays_w, keepdim=True), 1e-12)
 
     # Midpoint normal equations: sum_d (I - r_d r_d^T) x = sum_d (I - r_d r_d^T) c_d.
     eye = eye3(points)
@@ -303,8 +308,8 @@ def _relandmark(rot, trans, points, obs_cam, obs_uv, cam: Pinhole, gate_px, dens
     hyp_pair = tri(m[..., :, None, :, :] + m[..., None, :, :, :], mc[..., :, None, :] + mc[..., None, :, :])
     not_self = ~torch.eye(D, dtype=torch.bool, device=obs_cam.device)
     pair_ok = (valid[..., :, None] & valid[..., None, :] & not_self).flatten(-2)
-    a_full = m.sum(-3)
-    rhs_full = mc.sum(-2)
+    a_full = fixed.sum(m, -3)
+    rhs_full = fixed.sum(mc, -2)
     hyp_loo = tri(a_full[..., None, :, :] - m, rhs_full[..., None, :] - mc)
     loo_ok = valid & ((n_valid[..., None] - 1) >= 2)
     hyp_full = tri(a_full, rhs_full)[..., None, :]
@@ -326,7 +331,7 @@ def _relandmark(rot, trans, points, obs_cam, obs_uv, cam: Pinhole, gate_px, dens
         rn = torch.sqrt(du * du + dv * dv + 1e-12)
         inl = (rn < gate) & valid[..., None, :] & (pc[..., 2] > 1e-6)
         n_inl = inl.sum(-1)
-        mean_in = torch.where(inl, rn, 0.0).sum(-1) / torch.clamp_min(n_inl, 1)
+        mean_in = fixed.sum(torch.where(inl, rn, 0.0), -1) / torch.clamp_min(n_inl, 1)
         score = n_inl.to(rn.dtype) - 1e-3 * torch.clamp(mean_in / gate[..., 0], 0.0, 1.0)
         return inl, n_inl, torch.where(ok, score, -1.0)
 
@@ -342,7 +347,7 @@ def _relandmark(rot, trans, points, obs_cam, obs_uv, cam: Pinhole, gate_px, dens
     # Consensus refit from all the winner's inlier rays, kept when its
     # support does not drop.
     mw = m * win_inl[..., None, None]
-    refit = tri(mw.sum(-3), rotate(mw, centers).sum(-2))
+    refit = tri(fixed.sum(mw, -3), fixed.sum(rotate(mw, centers), -2))
     r_inl, r_n, _ = score_of(refit[..., None, :], torch.ones_like(full_ok))
     r_inl, r_n = r_inl[..., 0, :], r_n[..., 0]
     use_refit = r_n >= win_n

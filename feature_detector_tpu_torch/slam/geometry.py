@@ -13,6 +13,11 @@ with ``seed`` and copies it to the device, so the card and the CPU see the
 same hypotheses.  (The JAX package draws with ``jax.random`` instead; its
 draws can be handed in through ``gumbel``.)
 
+Products, sums and small dense solves go through ``fixed.py``: inside
+``fixed.batch_invariant`` (the chunk solver) a float32 problem gives the
+same bits whatever the batch it is solved in.  The eigen- and
+singular-value decompositions stay the library's batched calls.
+
 Decompositions: eigenvector and singular-vector signs differ between
 LAPACK and cuSOLVER; everything downstream of them here is sign-invariant
 (the essential matrix is defined up to sign, and the decomposition fixes
@@ -26,7 +31,9 @@ from typing import Optional
 
 import torch
 
+from . import fixed
 from .camera import Pinhole, projection_jacobian
+from .fixed import solve
 from .lie import eye3, hat, jacfwd, rotate, so3_exp
 from .linalg3 import det3, solve3
 
@@ -34,16 +41,8 @@ _TOP_K = 8  # hypotheses refined by two_view_init
 
 
 # --------------------------------------------------------------------------
-# Small dense linear algebra that, like XLA's, never raises
+# Decompositions that, like XLA's, never raise
 # --------------------------------------------------------------------------
-
-
-def solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve a x = b for [..., n, n] a and [..., n] b.  A singular system
-    gives inf/NaN instead of raising, as ``jnp.linalg.solve`` does."""
-    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-1])
-    n = a.shape[-1]
-    return torch.linalg.solve_ex(a.expand(*batch, n, n), b.expand(*batch, n)[..., None])[0][..., 0]
 
 
 _LINALG_BATCH = 2048  # matrices per batched eigh/SVD call (cuSOLVER's batched calls reject larger ones)
@@ -134,13 +133,13 @@ def triangulate(rot_a, trans_a, rot_b, trans_b, uv_a, uv_b, cam: Pinhole):
     m = a[..., :3]
     c = a[..., 3]
     mt = m.transpose(-1, -2)
-    ata = mt @ m
+    ata = fixed.matmul(mt, m)
     tr = ata[..., 0, 0] + ata[..., 1, 1] + ata[..., 2, 2]
     ata = ata + (1e-9 * tr + 1e-20)[..., None, None] * eye3(ata)
     s = torch.clamp_min(ata.abs().amax(dim=(-2, -1)), 1e-20)
     pts = -solve3(ata / s[..., None, None], rotate(mt, c) / s[..., None])
-    za = (rot_a[..., None, 2, :] * pts).sum(-1) + trans_a[..., None, 2]
-    zb = (rot_b[..., None, 2, :] * pts).sum(-1) + trans_b[..., None, 2]
+    za = fixed.sum(rot_a[..., None, 2, :] * pts, -1) + trans_a[..., None, 2]
+    zb = fixed.sum(rot_b[..., None, 2, :] * pts, -1) + trans_b[..., None, 2]
     return pts, (za > 1e-6) & (zb > 1e-6)
 
 
@@ -153,7 +152,7 @@ def _weighted_normal(a: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """A^T W A for design rows a [..., N, 9] and weights [..., M, N]
     (M weightings of the same rows): [..., M, 9, 9]."""
     outer = (a[..., :, None] * a[..., None, :]).flatten(-2)  # [..., N, 81]
-    return (weight @ outer).unflatten(-1, (9, 9))
+    return fixed.matmul(weight, outer).unflatten(-1, (9, 9))
 
 
 def _essential_from_normal(ata: torch.Tensor) -> torch.Tensor:
@@ -164,7 +163,7 @@ def _essential_from_normal(ata: torch.Tensor) -> torch.Tensor:
     u, s, vt = svd(e)
     sigma = (s[..., 0] + s[..., 1]) / 2.0
     d = torch.stack([sigma, sigma, torch.zeros_like(sigma)], dim=-1)
-    return (u * d[..., None, :]) @ vt
+    return fixed.matmul(u * d[..., None, :], vt)
 
 
 def essential_from_matches(uv_a, uv_b, weight, cam: Pinhole) -> torch.Tensor:
@@ -182,15 +181,15 @@ def decompose_essential(e, uv_a, uv_b, weight, cam: Pinhole):
     u = u * torch.sign(det3(u))[..., None, None]
     vt = vt * torch.sign(det3(vt))[..., None, None]
     w = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], dtype=e.dtype, device=e.device)
-    r1 = u @ w @ vt
-    r2 = u @ w.T @ vt
+    r1 = fixed.matmul(fixed.matmul(u, w), vt)
+    r2 = fixed.matmul(fixed.matmul(u, w.T), vt)
     t = u[..., :, 2]
     cands_r = torch.stack([r1, r1, r2, r2], dim=-3)  # [..., 4, 3, 3]
     cands_t = torch.stack([t, -t, t, -t], dim=-2)
     eye = eye3(e)
     _, ok = triangulate(eye, torch.zeros(3, dtype=e.dtype, device=e.device), cands_r, cands_t,
                         uv_a[..., None, :, :], uv_b[..., None, :, :], cam)
-    scores = (ok * weight[..., None, :]).sum(-1)  # [..., 4]
+    scores = fixed.sum(ok * weight[..., None, :], -1)  # [..., 4]
     best = torch.argmax(scores, dim=-1)
     pick_r = torch.gather(cands_r, -3, best[..., None, None, None].expand(*best.shape, 1, 3, 3))[..., 0, :, :]
     pick_t = torch.gather(cands_t, -2, best[..., None, None].expand(*best.shape, 1, 3))[..., 0, :]
@@ -199,9 +198,9 @@ def decompose_essential(e, uv_a, uv_b, weight, cam: Pinhole):
 
 def _sampson_d2(e, xa, xb):
     """Squared Sampson epipolar distance in normalized coordinates."""
-    exa = xa @ e.transpose(-1, -2)  # [..., N, 3] = E xa
-    etxb = xb @ e  # [..., N, 3] = E^T xb
-    num = torch.square((xb * exa).sum(-1))
+    exa = fixed.matmul(xa, e.transpose(-1, -2))  # [..., N, 3] = E xa
+    etxb = fixed.matmul(xb, e)  # [..., N, 3] = E^T xb
+    num = torch.square(fixed.sum(xb * exa, -1))
     den = exa[..., 0] ** 2 + exa[..., 1] ** 2 + etxb[..., 0] ** 2 + etxb[..., 1] ** 2
     return num / torch.clamp_min(den, 1e-12)
 
@@ -209,19 +208,19 @@ def _sampson_d2(e, xa, xb):
 def _tangent_basis(t: torch.Tensor) -> torch.Tensor:
     """[..., 3, 2] orthonormal basis of the plane orthogonal to unit t."""
     seed = eye3(t)[torch.argmin(t.abs(), dim=-1)]
-    b1 = seed - t * (seed * t).sum(-1, keepdim=True)
-    b1 = b1 / torch.clamp_min(torch.linalg.vector_norm(b1, dim=-1, keepdim=True), 1e-12)
+    b1 = seed - t * fixed.sum(seed * t, -1, keepdim=True)
+    b1 = b1 / torch.clamp_min(fixed.norm(b1, keepdim=True), 1e-12)
     b2 = torch.linalg.cross(t, b1, dim=-1)
     return torch.stack([b1, b2], dim=-1)
 
 
 def _unit(t: torch.Tensor) -> torch.Tensor:
-    return t / torch.clamp_min(torch.linalg.vector_norm(t, dim=-1, keepdim=True), 1e-12)
+    return t / torch.clamp_min(fixed.norm(t, keepdim=True), 1e-12)
 
 
 def _perturbed(r, t, basis, dp):
     """(exp(dp[:3]) R, unit(t + B dp[3:5])): the SO(3) x S^2 update."""
-    return so3_exp(dp[..., :3]) @ r, _unit(t + rotate(basis, dp[..., 3:5]))
+    return fixed.matmul(so3_exp(dp[..., :3]), r), _unit(t + rotate(basis, dp[..., 3:5]))
 
 
 # --------------------------------------------------------------------------
@@ -241,11 +240,11 @@ def refine_relative_pose(rot, trans, uv_a, uv_b, weight, cam: Pinhole, iteration
 
         def residual(delta, r=r, t=t, basis=basis):
             r2, t2 = _perturbed(r, t, basis, delta)
-            e = hat(t2) @ r2
-            exa = xa @ e.transpose(-1, -2)
-            etxb = xb @ e
+            e = fixed.matmul(hat(t2), r2)
+            exa = fixed.matmul(xa, e.transpose(-1, -2))
+            etxb = fixed.matmul(xb, e)
             den = exa[..., 0] ** 2 + exa[..., 1] ** 2 + etxb[..., 0] ** 2 + etxb[..., 1] ** 2
-            s = (xb * exa).sum(-1) * torch.rsqrt(den + 1e-18)
+            s = fixed.sum(xb * exa, -1) * torch.rsqrt(den + 1e-18)
             hub = torch.clamp_max(sigma / torch.clamp_min(s.abs(), 1e-12), 1.0)
             return s * torch.sqrt(hub) * weight
 
@@ -253,7 +252,7 @@ def refine_relative_pose(rot, trans, uv_a, uv_b, weight, cam: Pinhole, iteration
         j = jacfwd(residual, zero)  # [..., N, 5]
         r0 = residual(zero)
         jt = j.transpose(-1, -2)
-        h = jt @ j + 1e-9 * torch.eye(5, dtype=j.dtype, device=j.device)
+        h = fixed.matmul(jt, j) + 1e-9 * torch.eye(5, dtype=j.dtype, device=j.device)
         delta = -solve(h, rotate(jt, r0))
         r, t = _perturbed(r, t, basis, delta)
     return r, t
@@ -274,7 +273,7 @@ def refine_relative_pose_reproj(rot, trans, uv_a, uv_b, weight, cam: Pinhole, it
 
     def residuals(r, t, logz):
         z = torch.exp(torch.clamp(logz, -6.0, 10.0))
-        pc = (xa * z[..., None]) @ r.transpose(-1, -2) + t[..., None, :]
+        pc = fixed.matmul(xa * z[..., None], r.transpose(-1, -2)) + t[..., None, :]
         zz = torch.clamp_min(pc[..., 2], 1e-6)
         u = cam.fx * pc[..., 0] / zz + cam.cx
         v = cam.fy * pc[..., 1] / zz + cam.cy
@@ -282,8 +281,8 @@ def refine_relative_pose_reproj(rot, trans, uv_a, uv_b, weight, cam: Pinhole, it
 
     def robust_cost(r, t, logz):
         res = residuals(r, t, logz)
-        e2 = (res * res).sum(-1)
-        return (weight * s2 * torch.log1p(e2 / s2)).sum(-1)
+        e2 = fixed.sum(res * res, -1)
+        return fixed.sum(weight * s2 * torch.log1p(e2 / s2), -1)
 
     r, t = rot, trans
     lam = torch.full(t.shape[:-1], 1e-3, dtype=torch.float32, device=t.device)
@@ -301,17 +300,17 @@ def refine_relative_pose_reproj(rot, trans, uv_a, uv_b, weight, cam: Pinhole, it
         jp = jacfwd(lambda dp: res_param(dp, zz), zp)  # [..., N, 2, 5]
         jz = torch.func.jvp(lambda dz: res_param(zp, dz), (zz,), (torch.ones_like(zz),))[1]  # [..., N, 2]
         r0 = res_param(zp, zz)
-        e2 = (r0 * r0).sum(-1)
+        e2 = fixed.sum(r0 * r0, -1)
         w = weight / (1.0 + e2 / s2)
-        a_ = torch.einsum("...nki,...n,...nkj->...ij", jp, w, jp)
-        bv = torch.einsum("...nki,...n,...nk->...ni", jp, w, jz)
-        dv = torch.einsum("...nk,...n,...nk->...n", jz, w, jz) + lam[..., None] + 1e-8
-        ga = torch.einsum("...nki,...n,...nk->...i", jp, w, r0)
-        gz = torch.einsum("...nk,...n,...nk->...n", jz, w, r0)
-        s_ = a_ + lam[..., None, None] * eye5 - torch.einsum("...ni,...n,...nj->...ij", bv, 1.0 / dv, bv)
-        rhs = -(ga - torch.einsum("...ni,...n,...n->...i", bv, 1.0 / dv, gz))
+        a_ = fixed.einsum("...nki,...n,...nkj->...ij", jp, w, jp)
+        bv = fixed.einsum("...nki,...n,...nk->...ni", jp, w, jz)
+        dv = fixed.einsum("...nk,...n,...nk->...n", jz, w, jz) + lam[..., None] + 1e-8
+        ga = fixed.einsum("...nki,...n,...nk->...i", jp, w, r0)
+        gz = fixed.einsum("...nk,...n,...nk->...n", jz, w, r0)
+        s_ = a_ + lam[..., None, None] * eye5 - fixed.einsum("...ni,...n,...nj->...ij", bv, 1.0 / dv, bv)
+        rhs = -(ga - fixed.einsum("...ni,...n,...n->...i", bv, 1.0 / dv, gz))
         dp = solve(s_, rhs)
-        dz = -(gz + (bv @ dp[..., None])[..., 0]) / dv
+        dz = -(gz + fixed.matvec(bv, dp)) / dv
         r2, t2 = _perturbed(r, t, basis, dp)
         lz2 = logz + dz
         c2 = robust_cost(r2, t2, lz2)
@@ -337,7 +336,7 @@ def _ransac_rounds(uv_a, uv_b, valid, cam, gumbel, tau):
     a = _epipolar_design(xa, xb)
     e = _essential_from_normal(_weighted_normal(a, _hypothesis_weights(valid, gumbel)))  # [..., R, 3, 3]
     d2 = _sampson_d2(e, xa[..., None, :, :], xb[..., None, :, :])  # [..., R, N]
-    score = torch.where(valid[..., None, :], torch.clamp_min(1.0 - d2 / tau, 0.0), 0.0).sum(-1)
+    score = fixed.sum(torch.where(valid[..., None, :], torch.clamp_min(1.0 - d2 / tau, 0.0), 0.0), -1)
     return score, d2, a, xa, xb
 
 
@@ -378,16 +377,16 @@ def two_view_init(uv_a, uv_b, valid, cam: Pinhole, iterations: int = 3, ransac_r
     eye = eye3(r_c)
     zero3 = torch.zeros(3, dtype=r_c.dtype, device=r_c.device)
     pts_c, _ = triangulate(eye, zero3, r_c, t_c, uva_k, uvb_k, cam)
-    pc = pts_c @ r_c.transpose(-1, -2) + t_c[..., None, :]
+    pc = fixed.matmul(pts_c, r_c.transpose(-1, -2)) + t_c[..., None, :]
     zz = torch.clamp_min(pc[..., 2], 1e-6)
     res = torch.stack([cam.fx * pc[..., 0] / zz + cam.cx, cam.fy * pc[..., 1] / zz + cam.cy], -1) - uvb_k
-    e2 = (res * res).sum(-1)
-    cand_cost = torch.where(valid[..., None, :], sigma2_px * torch.log1p(e2 / sigma2_px), 0.0).sum(-1)
+    e2 = fixed.sum(res * res, -1)
+    cand_cost = fixed.sum(torch.where(valid[..., None, :], sigma2_px * torch.log1p(e2 / sigma2_px), 0.0), -1)
     best = torch.argmin(cand_cost, dim=-1)
     rot_b = torch.gather(r_c, -3, best[..., None, None, None].expand(*best.shape, 1, 3, 3))[..., 0, :, :]
     trans_b = torch.gather(t_c, -2, best[..., None, None].expand(*best.shape, 1, 3))[..., 0, :]
 
-    d2 = _sampson_d2(hat(trans_b) @ rot_b, xa, xb)
+    d2 = _sampson_d2(fixed.matmul(hat(trans_b), rot_b), xa, xb)
     pts, cheir = triangulate(eye, zero3, rot_b, trans_b, uv_a, uv_b, cam)
     inlier = valid & (d2 < 9.0 * sigma2)
     if cheirality_gate:
@@ -425,7 +424,7 @@ def epipolar_inlier_gate(uv_a, uv_b, valid, cam: Pinhole, ransac_rounds: int = 4
 
 
 def _reproj(rot, trans, points, uv, cam):
-    pc = points @ rot.transpose(-1, -2) + trans[..., None, :]
+    pc = fixed.matmul(points, rot.transpose(-1, -2)) + trans[..., None, :]
     z = torch.clamp_min(pc[..., 2], 1e-6)
     return torch.stack([cam.fx * pc[..., 0] / z + cam.cx, cam.fy * pc[..., 1] / z + cam.cy], -1) - uv
 
@@ -435,16 +434,16 @@ def pnp_refine(rot, trans, points, uv, weight, cam: Pinhole):
     [..., N] masks points."""
 
     def residuals(delta):
-        r = so3_exp(delta[..., :3]) @ rot
+        r = fixed.matmul(so3_exp(delta[..., :3]), rot)
         return _reproj(r, trans + delta[..., 3:], points, uv, cam) * weight[..., None]
 
     zero = torch.zeros(trans.shape[:-1] + (6,), dtype=trans.dtype, device=trans.device)
     jf = jacfwd(residuals, zero).flatten(-3, -2)  # [..., 2N, 6]
     rf = residuals(zero).flatten(-2)
     jt = jf.transpose(-1, -2)
-    h = jt @ jf + 1e-6 * torch.eye(6, dtype=jf.dtype, device=jf.device)
+    h = fixed.matmul(jt, jf) + 1e-6 * torch.eye(6, dtype=jf.dtype, device=jf.device)
     delta = -solve(h, rotate(jt, rf))
-    return so3_exp(delta[..., :3]) @ rot, trans + delta[..., 3:]
+    return fixed.matmul(so3_exp(delta[..., :3]), rot), trans + delta[..., 3:]
 
 
 def pnp_solve(rot0, trans0, points, uv, valid, cam: Pinhole, *, iters: int = 20, gate_px: float = 3.0):
@@ -460,7 +459,7 @@ def pnp_solve(rot0, trans0, points, uv, valid, cam: Pinhole, *, iters: int = 20,
 
     def errs(rot, trans):
         r = _reproj(rot, trans, points, uv, cam)
-        return r, torch.sqrt((r * r).sum(-1) + 1e-12)
+        return r, torch.sqrt(fixed.sum(r * r, -1) + 1e-12)
 
     _, e0 = errs(rot0, trans0)
     srt = torch.sort(torch.where(valid, e0, float("inf")), dim=-1).values
@@ -472,7 +471,7 @@ def pnp_solve(rot0, trans0, points, uv, valid, cam: Pinhole, *, iters: int = 20,
     eye6 = torch.eye(6, dtype=trans0.dtype, device=trans0.device)
 
     def rho_cost(en):
-        return (keep * s2 * torch.log1p(en * en / s2)).sum(-1)
+        return fixed.sum(keep * s2 * torch.log1p(en * en / s2), -1)
 
     rot, trans = rot0, trans0
     lam = torch.full(trans0.shape[:-1], 1e-3, dtype=torch.float32, device=trans0.device)
@@ -480,15 +479,15 @@ def pnp_solve(rot0, trans0, points, uv, valid, cam: Pinhole, *, iters: int = 20,
     for _ in range(iters):
         r, en = errs(rot, trans)
         w = keep / (1.0 + en * en / s2)
-        pc = points @ rot.transpose(-1, -2) + trans[..., None, :]
+        pc = fixed.matmul(points, rot.transpose(-1, -2)) + trans[..., None, :]
         jpi = projection_jacobian(pc, cam)  # [..., N, 2, 3]
-        jc = torch.cat([-jpi @ hat(pc), jpi], dim=-1)  # [..., N, 2, 6]
+        jc = torch.cat([-fixed.matmul(jpi, hat(pc)), jpi], dim=-1)  # [..., N, 2, 6]
         jw = jc * w[..., None, None]
-        h = torch.einsum("...nki,...nkj->...ij", jw, jc)
-        g = torch.einsum("...nki,...nk->...i", jw, r)
+        h = fixed.einsum("...nki,...nkj->...ij", jw, jc)
+        g = fixed.einsum("...nki,...nk->...i", jw, r)
         h = h + lam[..., None, None] * torch.diag_embed(h.diagonal(dim1=-2, dim2=-1)) + 1e-6 * eye6
         delta = -solve(h, g)
-        rot2, trans2 = so3_exp(delta[..., :3]) @ rot, trans + delta[..., 3:]
+        rot2, trans2 = fixed.matmul(so3_exp(delta[..., :3]), rot), trans + delta[..., 3:]
         c2 = rho_cost(errs(rot2, trans2)[1])
         ok = torch.isfinite(c2) & (c2 < cost)
         rot = torch.where(ok[..., None, None], rot2, rot)

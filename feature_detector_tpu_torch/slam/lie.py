@@ -4,12 +4,15 @@ Counterpart of ``feature_detector_tpu/slam/lie.py``: rotations are 3x3
 matrices, minimal updates are axis-angle left perturbations, and every
 function broadcasts over leading axes.  ``jacfwd`` is the forward-mode
 Jacobian the solvers take with respect to such perturbations (the JAX
-package's ``jax.jacfwd``), batched over the leading axes.
+package's ``jax.jacfwd``), batched over the leading axes.  Products and
+norms go through ``fixed.py`` (inside ``fixed.batch_invariant``, K4).
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import fixed
 
 _EPS = 1e-8
 
@@ -34,12 +37,12 @@ def eye3(like: torch.Tensor) -> torch.Tensor:
 
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues: [..., 3] axis-angle -> [..., 3, 3] rotation."""
-    norm = torch.linalg.vector_norm(w, dim=-1, keepdim=True)
+    norm = fixed.norm(w, keepdim=True)
     theta = torch.clamp_min(norm, _EPS)
     k = hat(w / theta)
     th = theta[..., None]
     eye = eye3(w).expand(k.shape)
-    r = eye + torch.sin(th) * k + (1.0 - torch.cos(th)) * (k @ k)
+    r = eye + torch.sin(th) * k + (1.0 - torch.cos(th)) * fixed.matmul(k, k)
     small = norm[..., None] < 1e-7
     return torch.where(small, eye + hat(w), r)
 
@@ -58,7 +61,7 @@ def so3_log(r: torch.Tensor) -> torch.Tensor:
 
 def rotate(rot: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """R x for [..., 3, 3] and [..., 3]."""
-    return (rot @ x[..., None])[..., 0]
+    return fixed.matvec(rot, x)
 
 
 def se3_apply(rot: torch.Tensor, trans: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -69,7 +72,7 @@ def se3_apply(rot: torch.Tensor, trans: torch.Tensor, x: torch.Tensor) -> torch.
 def se3_update(rot, trans, delta):
     """Left-perturbation update: R <- exp(dtheta) R, t <- t + dt.
     delta: [..., 6] = (dtheta, dt)."""
-    return so3_exp(delta[..., :3]) @ rot, trans + delta[..., 3:]
+    return fixed.matmul(so3_exp(delta[..., :3]), rot), trans + delta[..., 3:]
 
 
 def se3_inverse(rot, trans):
@@ -79,7 +82,7 @@ def se3_inverse(rot, trans):
 
 def se3_compose(r1, t1, r2, t2):
     """(R1, t1) * (R2, t2): first apply 2, then 1."""
-    return r1 @ r2, rotate(r1, t2) + t1
+    return fixed.matmul(r1, r2), rotate(r1, t2) + t1
 
 
 def se3_log(rot, trans):

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from . import fixed
+
 
 def det3(m: torch.Tensor) -> torch.Tensor:
     """[..., 3, 3] -> [...] determinant."""
@@ -55,4 +57,4 @@ def inv3(m: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
 
 def solve3(m: torch.Tensor, b: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
     """Solve m x = b for [..., 3, 3] m and [..., 3] b (Cramer via adjugate)."""
-    return (adjugate3(m) @ b[..., None])[..., 0] / _safe_det(m, eps)[..., None]
+    return fixed.matvec(adjugate3(m), b) / _safe_det(m, eps)[..., None]

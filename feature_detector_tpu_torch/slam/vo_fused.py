@@ -22,16 +22,18 @@ Precision as in the JAX package off the TPU: the chunk solver's BA solves
 in float32 with one refinement step, the global BA in float64; products
 never run in TF32 (the entry refuses it).  The RANSAC draws come from a CPU
 ``torch.Generator`` (``geometry.ransac_gumbel``), the same on every device.
+The chunk solver's float32 products, sums and dense solves go through
+``fixed.py`` (K4 and K5 on the card): a chunk's solution depends on its own
+problem only, not on how many chunks share its batch.
 
-With ``mesh`` (a ``DeviceMesh``, one rank per device) the global BA runs
-landmark-sharded (``ba.make_distributed_ba``).  Every other stage runs
-replicated on every rank, the same on each, the chunk solves included: the
-RANSAC draws come from the CPU generator, and the whole chunk batch is
-solved on every rank.  (The JAX package splits the chunk batch over the
-mesh.  On the card the chunk solver's batched products, sums and LU round
-by the batch size, so a rank's share of the chunks parted from one
-device's solutions; and the solve is host-paced, so a share took about as
-long as the whole batch.)
+With ``mesh`` (a ``DeviceMesh``, one rank per device) the chunk batch is
+split over the mesh's ``data`` axis, as the JAX package splits it: padded
+with empty chunk problems (zero tracks, so ``chunk_ok`` is False) to a
+multiple of the ranks, each rank solves its block, and an all-gather brings
+every block to every rank.  The global BA runs landmark-sharded
+(``ba.make_distributed_ba``).  Every other stage runs replicated on every
+rank, the same on each (the RANSAC draws come from the CPU generator), so
+each rank returns one device's result, bit for bit.
 """
 
 from __future__ import annotations
@@ -45,9 +47,9 @@ import torch
 from ..core.config import BAOptions, BriefOptions, DetectorOptions, MatcherOptions
 from ..core.device import DeviceLike, as_tensor
 from ..match.hamming import match_hamming
-from ..parallel.mesh import mesh_device
+from ..parallel.mesh import gather_leading, mesh_device, shard_leading
 from ..utils.log import report_warn
-from . import geometry
+from . import fixed, geometry
 from .ba import BAProblem, _ba_solve_impl, _poses_per_obs, ba_solve, check_no_tf32, make_distributed_ba
 from .camera import Pinhole
 from .lie import eye3, rotate, so3_exp, so3_log
@@ -77,14 +79,14 @@ def midpoint_triangulate(rot, trans, obs_cam, obs_uv, cam: Pinhole, gate_px: flo
     rx = (obs_uv[..., 0] - cam.cx) / cam.fx
     ry = (obs_uv[..., 1] - cam.cy) / cam.fy
     rays_w = rotate(rt, torch.stack([rx, ry, torch.ones_like(rx)], -1))
-    rays_w = rays_w / torch.clamp_min(torch.linalg.vector_norm(rays_w, dim=-1, keepdim=True), 1e-12)
+    rays_w = rays_w / torch.clamp_min(fixed.norm(rays_w, keepdim=True), 1e-12)
     eye = eye3(obs_uv)
     m = eye - rays_w[..., :, None] * rays_w[..., None, :]
     mc = rotate(m, centers)
 
     def fit(w):
-        a = (m * w[..., None, None]).sum(-3) + 1e-6 * eye
-        return solve3(a, (mc * w[..., None]).sum(-2))
+        a = fixed.sum(m * w[..., None, None], -3) + 1e-6 * eye
+        return solve3(a, fixed.sum(mc * w[..., None], -2))
 
     def gate(pts):
         pc = rotate(R, pts[..., :, None, :]) + t
@@ -109,6 +111,7 @@ def midpoint_triangulate(rot, trans, obs_cam, obs_uv, cam: Pinhole, gate_px: flo
 # --------------------------------------------------------------------------
 
 
+@fixed.batch_invariant()
 def solve_chunks(track_uv, track_has, cam: Pinhole, min_corr: int, n_rounds: int, ba_opts: BAOptions,
                  gate_px: float, gumbel: Optional[torch.Tensor] = None):
     """Solve a stack of fixed-shape chunk problems.
@@ -122,7 +125,10 @@ def solve_chunks(track_uv, track_has, cam: Pinhole, min_corr: int, n_rounds: int
     truncated reprojection score over all the chunk's observations wins.
     ``gumbel`` [64, L]: the two-view RANSAC's noise (drawn from seed 0 when
     absent).  Returns per chunk (rot [K, F, 3, 3], trans [K, F, 3], points
-    [K, L, 3], has_pt [K, L], ok [K], j* [K]).
+    [K, L, 3], has_pt [K, L], ok [K], j* [K]).  Runs under
+    ``fixed.batch_invariant``: a chunk's outputs are the same bits whatever
+    the other chunks of the batch (an empty problem, zero tracks, gives
+    ``ok`` False).
     """
     K, L, F = track_has.shape
     dev = track_uv.device
@@ -184,7 +190,8 @@ def solve_chunks(track_uv, track_has, cam: Pinhole, min_corr: int, n_rounds: int
     v = cam.fy * pc[..., 1] / z + cam.cy
     r2 = (u - uv[..., 0]) ** 2 + (v - uv[..., 1]) ** 2
     tau2 = (2.0 * gate_px) ** 2
-    score = torch.where(has, torch.clamp_max(r2, tau2), 0.0).sum((-2, -1)) / torch.clamp_min(has.sum((-2, -1)), 1)
+    score = fixed.sum(torch.where(has, torch.clamp_max(r2, tau2), 0.0), (-2, -1)) / torch.clamp_min(
+        has.sum((-2, -1)), 1)
     pick_a = (score[:, 0] <= score[:, 1]) | (j_a == j_b)
     rots, trans, pts, has_pt = (torch.where(pick_a.reshape(K, *([1] * (x.dim() - 2))), x[:, 0], x[:, 1])
                                 for x in (rots, trans, pts, has_pt))
@@ -491,17 +498,19 @@ def run_visual_odometry_fused(
     tracks = build_tracks_conflict_free(pair_matches, n, capacity)
     mark("tracks")
 
-    # --- 4. chunk problems, all solved as one batch ------------------------
+    # --- 4. chunk problems, solved as one batch or a block a rank -----------
     starts = chunk_starts(n, chunk, overlap)
     K = len(starts)
     track_uv_k, track_has_k = chunk_problems(tracks, uv_np, starts, chunk, max_tracks_per_chunk)
-    c_rots, c_trans, c_pts, c_haspt, c_ok, _ = solve_chunks(
-        as_tensor(track_uv_k, dev), as_tensor(track_has_k, dev), cam, min_corr, n_rounds, chunk_ba_opts, gate_px)
-    c_rots = c_rots.cpu().numpy()
-    c_trans = c_trans.cpu().numpy()
-    c_pts = c_pts.cpu().numpy()
-    c_haspt = c_haspt.cpu().numpy()
-    c_ok = c_ok.cpu().numpy().copy()
+    track_uv_t, track_has_t = as_tensor(track_uv_k, dev), as_tensor(track_has_k, dev)
+    if mesh is not None:
+        track_uv_t = shard_leading(track_uv_t, mesh, "data", 0.0)
+        track_has_t = shard_leading(track_has_t, mesh, "data", False)
+    solved_k = solve_chunks(track_uv_t, track_has_t, cam, min_corr, n_rounds, chunk_ba_opts, gate_px)
+    if mesh is not None:
+        solved_k = [gather_leading(x, mesh, "data")[:K] for x in solved_k]
+    c_rots, c_trans, c_pts, c_haspt, c_ok, _ = (x.cpu().numpy() for x in solved_k)
+    c_ok = c_ok.copy()
     mark("chunk_solve")
 
     # --- 5. Sim(3) composition over overlap frames (host) -------------------

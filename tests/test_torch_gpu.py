@@ -17,6 +17,7 @@ from feature_detector_tpu_torch.core.types import Features
 from feature_detector_tpu_torch.frontend.descriptor import compute_descriptors
 from feature_detector_tpu_torch.frontend.detector import detect_good_features, detect_good_features_batch
 from feature_detector_tpu_torch.frontend.line_detector import detect_good_lines, detect_good_lines_with_state
+from feature_detector_tpu_torch.kernels import fixed_order as FO
 from feature_detector_tpu_torch.kernels import lsd_flood as LF
 from feature_detector_tpu_torch.kernels.detect import greedy_select_ref
 from feature_detector_tpu_torch.kernels.greedy import GREEDY_TILE, greedy_select
@@ -171,7 +172,7 @@ def test_lsd_flood_kernel_equals_ref(cuda):
 
 
 def test_kernels_on_every_card_equal_ref():
-    """K1/K2 and K3 on cuda:3, cuda:0, cuda:2 and cuda:1 in one process:
+    """K1/K2, K3, K4 and K5 on cuda:3, cuda:0, cuda:2 and cuda:1 in one process:
     each ctypes library carries its own CUDA runtime and must launch on the
     card of the tensors it is given (the wrapper makes that card current),
     not on the first card it saw.  Equal to the plain version on every
@@ -195,6 +196,125 @@ def test_kernels_on_every_card_equal_ref():
         torch.cuda.synchronize(dev)
         for g, w in zip(got, LF.running_sweeps_ref(angle, valid, state, 33, TOL)):
             assert torch.equal(g, w), f"flood on {dev}"
+        for m, k, n in ((72, 1536, 72), (3, 3, 1)):
+            a, c = (torch.from_numpy(x).to(dev) for x in _operands(rng, 5, m, k, n))
+            got = FO.fixed_contract(a, c)
+            assert got.device == dev and torch.equal(got, FO.contract_ref(a, c)), f"K4 on {dev}"
+        a, b = (torch.from_numpy(x).to(dev) for x in _systems(rng, 5, 72))
+        got = FO.fixed_lu_solve(a, b)
+        assert got.device == dev and torch.equal(got, FO.lu_solve_ref(a, b)), f"K5 on {dev}"
+
+
+# --------------------------------------------------------------------------
+# K4 and K5: the chunk solver's fixed-order contraction and LU solve
+# --------------------------------------------------------------------------
+
+# (batch, M, K, N) of the fused VO's chunk solver on the bench's 17 chunks x 2 init pairs: the reduced camera
+# system, a camera's diagonal block (and PnP's normal matrix), a landmark's block, the back-substitution, a rotation,
+# the 8-point normal matrices of 64 RANSAC rounds
+FIXED_CONTRACT_SHAPES = {"reduced_system": (34, 72, 1536, 72), "camera_block": (408, 6, 1024, 6),
+                         "landmark_block": (17408, 3, 24, 3), "back_substitution": (34, 1536, 72, 1),
+                         "rotation": (20000, 3, 3, 1), "weighted_normal": (34, 64, 512, 81)}
+FIXED_SUM_SHAPES = {"cost": (34, 6144), "rows": (34 * 512 * 12, 2), "lanes_edge": (100, 17)}
+FIXED_LU_SHAPES = {"refine": (272, 5), "pnp": (408, 6), "reduced_system": (34, 72)}
+
+
+def _operands(rng, batch, m, k, n):
+    return rng.standard_normal((batch, m, k)).astype(np.float32), rng.standard_normal((batch, k, n)).astype(np.float32)
+
+
+def _systems(rng, batch, n):
+    a = rng.standard_normal((batch, n, n)).astype(np.float32)
+    a[:, np.arange(n), np.arange(n)] += np.float32(2 * n)
+    a[:, [0, 1]] = a[:, [1, 0]]  # the pivot search has rows to swap
+    return a, rng.standard_normal((batch, n)).astype(np.float32)
+
+
+def _same(got, want) -> bool:
+    """Bit for bit, a NaN equal to a NaN."""
+    return got.shape == want.shape and bool(((got == want) | (got.isnan() & want.isnan())).all())
+
+
+@pytest.mark.parametrize("name", sorted(FIXED_CONTRACT_SHAPES))
+def test_fixed_contract_kernel_equals_ref(cuda, name):
+    rng = np.random.default_rng(11)
+    a, c = (torch.from_numpy(x).to(cuda) for x in _operands(rng, *FIXED_CONTRACT_SHAPES[name]))
+    before = FO.fixed_contract.launches
+    got = FO.fixed_contract(a, c)
+    torch.cuda.synchronize()
+    assert FO.fixed_contract.launches == before + 1
+    assert _same(got, FO.contract_ref(a, c))
+    # Strided and broadcast operands: a transposed view, and c shared by the batch.
+    at = a.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert _same(FO.fixed_contract(at, c[:1]), FO.contract_ref(a, c[:1]))
+    assert float((got.double() - a.double() @ c.double()).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("name", sorted(FIXED_SUM_SHAPES))
+def test_fixed_sum_kernel_equals_ref(cuda, name):
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(FIXED_SUM_SHAPES[name]).astype(np.float32)).cuda()
+    before = FO.fixed_contract.launches
+    got = FO.fixed_sum(x)
+    torch.cuda.synchronize()
+    assert FO.fixed_contract.launches == before + 1
+    assert _same(got, FO.sum_ref(x))
+
+
+@pytest.mark.parametrize("name", sorted(FIXED_LU_SHAPES))
+def test_fixed_lu_solve_kernel_equals_ref(cuda, name):
+    a, b = (torch.from_numpy(x).cuda() for x in _systems(np.random.default_rng(13), *FIXED_LU_SHAPES[name]))
+    before = FO.fixed_lu_solve.launches
+    got = FO.fixed_lu_solve(a, b)
+    torch.cuda.synchronize()
+    assert FO.fixed_lu_solve.launches == before + 1
+    assert _same(got, FO.lu_solve_ref(a, b))
+    want = torch.linalg.solve(a.double(), b.double())
+    assert float((got.double() - want).abs().max()) < 1e-4
+
+
+def test_fixed_lu_solve_kernel_singular(cuda):
+    a = torch.tensor([[[1.0, 2.0], [2.0, 4.0]], [[0.0, 0.0], [0.0, 0.0]], [[float("nan"), 1.0], [1.0, 1.0]]]).cuda()
+    got = FO.fixed_lu_solve(a, torch.ones(3, 2, device="cuda"))
+    assert not torch.isfinite(got).all(-1).any()
+    assert _same(got, FO.lu_solve_ref(a, torch.ones(3, 2, device="cuda")))
+
+
+@pytest.mark.parametrize("block", [5, 1])
+def test_fixed_kernels_on_card_blocks_equal_whole(cuda, block):
+    """17 problems in blocks of ``block`` against the whole batch, at the
+    reduced system's shapes: the same bits."""
+    rng = np.random.default_rng(14)
+    a, c = (torch.from_numpy(x).cuda() for x in _operands(rng, 17, 72, 1536, 72))
+    s, rhs = (torch.from_numpy(x).cuda() for x in _systems(rng, 17, 72))
+    x = torch.from_numpy(rng.standard_normal((17, 6144)).astype(np.float32)).cuda()
+    whole = FO.fixed_contract(a, c), FO.fixed_sum(x), FO.fixed_lu_solve(s, rhs)
+    for i in range(0, 17, block):
+        part = (FO.fixed_contract(a[i:i + block], c[i:i + block]), FO.fixed_sum(x[i:i + block]),
+                FO.fixed_lu_solve(s[i:i + block], rhs[i:i + block]))
+        for p, w in zip(part, whole):
+            assert torch.equal(p, w[i:i + block])
+
+
+def test_solve_chunks_on_card_blocks_equal_whole(cuda):
+    """The bench's 17 chunk problems (chip_smoke.py's VO sequence, the
+    card's front-end) solved whole, in blocks of 5 and of 1, and padded to
+    20 with empty problems: the same bits."""
+    import chip_smoke as CS
+    from feature_detector_tpu_torch.slam.sequence import make_synthetic_sequence
+    from feature_detector_tpu_torch.slam.vo_fused import solve_chunks
+
+    seq = make_synthetic_sequence(n_frames=CS.VO_FRAMES, n_landmarks=CS.VO_LANDMARKS, seed=CS.VO_SEED,
+                                  motion="lateral", angle_step=0.03)
+    track_uv, track_has, args, _, _ = CS.vo_chunk_problems(torch, seq, torch.from_numpy(seq.images).cuda())
+    tu, th = torch.from_numpy(track_uv).cuda(), torch.from_numpy(track_has).cuda()
+    assert tu.shape[0] == 17
+    whole = solve_chunks(tu, th, *args)
+    pu = torch.cat([tu, tu.new_zeros((3, *tu.shape[1:]))])
+    ph = torch.cat([th, th.new_zeros((3, *th.shape[1:]))])
+    for block in (5, 1):
+        parts = [solve_chunks(pu[i:i + block], ph[i:i + block], *args) for i in range(0, 20, block)]
+        for w, got in zip(whole, zip(*parts)):
+            assert torch.equal(torch.cat(got)[:17], w), block
 
 
 def _few_live_tiles(h=130, w=200):

@@ -9,8 +9,9 @@ Tolerances, each measured on these inputs (listed in CHANGES.md too):
 - the sharded run's ATE under 3% of the span, as the reference's
   test_chunked_vo_sharded_over_mesh (tests/test_sequence.py:276-300);
 - the two ranks' trajectory against the one-device run's: within 1e-4 of
-  the span (every rank solves the whole chunk batch, as one device does;
-  the landmark-sharded global BA stays within BA_DIST_RTOL of ba_solve);
+  the span (each rank solves its block of the chunk batch, and a chunk's
+  solution does not depend on its batch; the landmark-sharded global BA
+  stays within BA_DIST_RTOL of ba_solve);
 - the distributed BA at two ranks against ba_solve: BA_DIST_RTOL of the
   magnitude, as in tests/test_torch_parallel.py.
 """
@@ -121,12 +122,16 @@ def test_sharded_vo_within_3pct_and_ranks_agree(runs):
 
 
 def test_sharded_vo_equals_one_device(runs):
-    """Every rank solves the whole chunk batch, as one device does, and the
+    """Each rank solves only its block of the chunk batch (4 chunks: 2 a
+    rank), whose solutions are the same bits as in the whole batch, and the
     global BA's landmark-sharded solve stays within BA_DIST_RTOL of
     ba_solve's: the two ranks' trajectory within VO_MESH_POS_ATOL of the
     span of the one-device run's."""
     ranks, single, _ = runs
     seq, res = single[3][0], single[3][1]
+    n_chunks = len(TV.chunk_starts(30, 12, 5))
+    for r in range(WORLD):
+        assert ranks[r]["chunk_blocks"].tolist() == [-(-n_chunks // WORLD)], (r, ranks[r]["chunk_blocks"])
     gt = seq.trajectory.positions
     err = np.abs(ranks[0]["positions"] - res.trajectory.positions).max() / np.linalg.norm(gt.max(0) - gt.min(0))
     print(f"sharded over {WORLD} ranks against one device: {err:.3g} of the span")

@@ -1,6 +1,8 @@
 """Which operations of the port's chunk solver round differently when the
-chunk batch is smaller: why every rank of a mesh solves the whole chunk
-batch (``slam/vo_fused.py``) instead of its share.
+chunk batch is smaller.  The fused VO splits its chunk batch over a mesh
+(``slam/vo_fused.py``), which holds only if no operation does: the solver's
+float32 products, sums and solves go through K4 and K5 (``slam/fixed.py``)
+for that reason, and this probe shows what is left.
 
     python -m tests.torch_chunk_batch_probe [--cpu] [--frames N] [--ks 5 1] [--blocks 5 1]
 
@@ -12,8 +14,9 @@ a torch dispatch mode that reruns every aten op whose tensor arguments carry
 the chunk batch on one of their first two axes on the first k chunks' slice
 (each ``--ks``) and prints every op site whose output differs, bit for bit,
 from the same slice of the whole batch's: the same inputs, a smaller batch.
-Ops inside ``torch.func`` transforms and ops that take the batch size as an
-argument are not probed.  The card by default (builds the kernels for the
+Ops inside ``torch.func`` transforms (counted under "skipped") and ops
+that take the batch size as an argument are not probed; the blocks above
+cover them.  The card by default (builds the kernels for the
 front-end); ``--cpu`` on the CPU.  Imports nothing of JAX.
 """
 

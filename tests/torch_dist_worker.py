@@ -37,6 +37,7 @@ from feature_detector_tpu_torch.parallel.frontend import (
 from feature_detector_tpu_torch.parallel.halo import exchange_halo, row_sharded_map
 from feature_detector_tpu_torch.parallel.mesh import gather_leading, make_mesh, shard_leading
 from feature_detector_tpu_torch.slam.ba import make_distributed_ba
+from feature_detector_tpu_torch.slam import vo_fused
 from feature_detector_tpu_torch.slam.camera import Pinhole
 from feature_detector_tpu_torch.slam.sequence import run_visual_odometry_chunked
 
@@ -99,10 +100,22 @@ def run_parallel(mesh, space, inputs, out):
 
 
 def run_vo(mesh, inputs, out):
+    """The VO over the mesh, with the number of chunk problems this rank's
+    ``solve_chunks`` calls were handed (``chunk_blocks``)."""
     cam = Pinhole(*(float(v) for v in inputs["cam"]))
-    res = run_visual_odometry_chunked(inputs["images"], cam, mesh=mesh)
+    solve, blocks = vo_fused.solve_chunks, []
+
+    def counted(track_uv, *args, **kwargs):
+        blocks.append(int(track_uv.shape[0]))
+        return solve(track_uv, *args, **kwargs)
+
+    vo_fused.solve_chunks = counted
+    try:
+        res = run_visual_odometry_chunked(inputs["images"], cam, mesh=mesh)
+    finally:
+        vo_fused.solve_chunks = solve
     out.update(positions=res.trajectory.positions, rotations_wc=res.rotations_wc,
-               translations_wc=res.translations_wc)
+               translations_wc=res.translations_wc, chunk_blocks=np.asarray(blocks, np.int64))
     _ba(out, "dense", make_distributed_ba(mesh, BA_CAM, BAOptions(**BA_DENSE)), _problem(inputs, "dense"))
 
 
