@@ -16,8 +16,10 @@ sequence at 240x320, all on the card.  It builds every CUDA kernel of these
 paths from the sources in the checkout (greedy selection, the LSD region
 flood, and the chunk solver's fixed-order contraction K4 and LU solve K5),
 holds each against its plain PyTorch version on the card (greedy selection
-also on the VO's own candidate maps, K4 and K5 on the VO's largest calls),
-shows through the launch
+also on the VO's own candidate maps, K4 and K5 on the VO's largest calls and
+on one call of every distinct shape and stride signature of the VO run,
+under torch.profiler: one kernel a call, no copy; their summed device time
+over a profiled VO run), shows through the launch
 counters that each path went through its kernels, checks the outputs
 against the port's CPU run (the NN post-processing fed the card's maps; the
 bfloat16 forward the path runs, and a float32 forward with TF32 off, each
@@ -61,7 +63,8 @@ case of 5 cameras), the VO over the mesh (each rank solves 5 of the 17
 chunks padded to 20; its trajectory is one card's, bit for bit) and the
 data-parallel SuperPoint step over the four ranks and holds each against
 one card, counts K1, K2, K4 and K5 a rank (K4 and K5 also held against their
-plain version on the rank's largest calls), and times each path on one
+plain version on the rank's largest calls and on every call signature of its
+VO run), and times each path on one
 card and over the four.  A rank that
 fails, or the wall limit, stops every rank and the run prints no result.
 
@@ -94,7 +97,10 @@ LSD_SOURCE = "feature_detector_tpu_torch/kernels/csrc/lsd_flood.cu"
 FIXED_SOURCE = "feature_detector_tpu_torch/kernels/csrc/fixed_order.cu"
 FIXED_REPLACES = ("none (added for the chunk solver: batch-invariant arithmetic, "
                   "feature_detector_tpu_torch/slam/fixed.py)")
-FIXED_KERNELS = {"fixed_contract": ("contract_serial", "contract_lanes"), "fixed_lu_solve": ("lu_solve_kernel",)}
+FIXED_KERNELS = {"fixed_contract": ("contract_serial", "contract_tiled"),
+                 "fixed_lu_solve": ("lu_solve_block", "lu_solve_warp")}
+FIXED_RANK_SHARE = 10  # a rank's share of the 34 chunk problems on four cards (5 chunks x 2 init pairs)
+PEAK_F32_SEPARATE_OPS_PER_S = 33.5e12  # H100 SXM float32 multiplies or adds without FMA: half the FMA rate
 LSD_BUDGET = 100
 LSD_SWEEPS_ODD = 330  # a sweep count that is no multiple of the sweeps per launch
 SEAM_ROWS, SEAM_COLS = 97, 151  # a map size that is no multiple of any tile
@@ -225,18 +231,36 @@ def cuda_ms(torch, fn, iters: int, warmup_s: float = 0.25) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profiled(torch, fn, attempts: int = 3, complete=bool) -> tuple:
+    """(device ms by kernel name, kernels by name, CUDA-event ms) of one call
+    of ``fn`` under torch.profiler, from the raw trace
+    (``traced_device_ms``).  A trace whose kernel counts are not
+    ``complete`` (by default: that hold no device event at all) is taken
+    again, up to ``attempts`` calls in all: CUPTI now and then hands back an
+    empty trace, or one that lacks some kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+        per_kernel, counts = traced_device_ms(torch, prof)
+        if complete(counts):
+            break
+    return per_kernel, counts, start.elapsed_time(end)
+
+
 def kernel_times(torch, fn, iters: int) -> dict:
     """Device time per call, in ms, of every kernel that ``fn`` runs, by
     name, from a torch.profiler trace of ``iters`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.device_time_total / iters / 1e3 for e in prof.key_averages() if e.device_time_total > 0}
+    per_kernel, _, _ = profiled(torch, lambda: [fn() for _ in range(iters)])
+    return {name: ms / iters for name, ms in per_kernel.items() if ms > 0}
 
 
 def device_ms(torch, fn, kernels, iters: int) -> float:
@@ -614,8 +638,6 @@ def vo_phase(torch, dev, smi):
     holds its VO and BA against."""
     import inspect
 
-    from torch.profiler import ProfilerActivity, profile
-
     from feature_detector_tpu_torch.core.config import BriefOptions, DetectorOptions, HarrisOptions
     from feature_detector_tpu_torch.core.types import Features
     from feature_detector_tpu_torch.frontend.detector import detection_maps
@@ -679,18 +701,14 @@ def vo_phase(torch, dev, smi):
     check(all(run["ate_m"] <= VO_ATE_SPAN_SHARE * span for run in runs), f"timed VO runs' ATE: {runs}")
 
     # One run under the profiler: the card's busy time against the run's event time.
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        run_visual_odometry_chunked(imgs, seq.cam)
-        end.record()
-        torch.cuda.synchronize()
-    prof_event_ms = start.elapsed_time(end)
-    per_kernel, counts = traced_device_ms(torch, prof)
+    per_kernel, counts, prof_event_ms = profiled(torch, lambda: run_visual_odometry_chunked(imgs, seq.cam))
     busy_ms = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:VO_TOP_KERNELS]
     check(busy_ms > 0, "the profiler saw no device time on the VO path")
+    ours = lambda entry, name: any(k in name for k in FIXED_KERNELS[entry])
+    fixed_run = {key: {"device_ms": sum(ms for name, ms in per_kernel.items() if ours(entry, name)),
+                       "kernels": sum(n for name, n in counts.items() if ours(entry, name))}
+                 for key, entry in (("contract", "fixed_contract"), ("lu_solve", "fixed_lu_solve"))}
 
     # The scan front-end on the card against the CPU's over the first frames.
     card_fe = scan_frontend(imgs[:VO_CHECK_FRAMES], "harris", 200, det, brief)
@@ -762,8 +780,10 @@ def vo_phase(torch, dev, smi):
     # card in blocks against the whole batch.
     chunk_cmp = vo_chunks_card_vs_cpu(torch, dev, seq, imgs)
 
-    # K4 and K5 against their plain versions on the VO's largest calls (not counted).
+    # K4 and K5 against their plain versions on the VO's largest calls and on one call of every distinct
+    # signature (not counted).
     fixed_entries, fixed_exact = fixed_kernel_entries(torch, fixed_calls, fixed_launches, "the fused VO's chunk solver")
+    fixed_sigs = fixed_signature_checks(torch, fixed_calls["signatures"])
 
     # The RANSAC draws: CPU generator, copied to the card.
     draws_equal = all(torch.equal(geometry.ransac_gumbel(0, r, n, dev).cpu(), geometry.ransac_gumbel(0, r, n, "cpu"))
@@ -776,7 +796,8 @@ def vo_phase(torch, dev, smi):
          frames_per_s_wall=VO_FRAMES / mean("wall_s"), frames_per_s_events=VO_FRAMES / mean("event_s"),
          runs=runs, stage_s_mean=stage_means, ate_m=ate, span_m=span, ate_share_of_span=ate / span,
          ate_share_of_span_library_solver=VO_ATE_SHARE_LIBRARY, chunk_blocks_cold_run=blocks,
-         fixed_launches=fixed_launches, fixed_exact=fixed_exact,
+         fixed_launches=fixed_launches, fixed_exact=fixed_exact, fixed_profiled_run=fixed_run,
+         fixed_signatures=fixed_sigs,
          num_tracks=res.num_tracks, mean_track_length=res.mean_track_length, points=int(len(res.points)),
          global_ba_tracks_padded=int(prob.points.shape[0]), greedy_launches=launches,
          profiled_run_event_ms=prof_event_ms, device_busy_ms=busy_ms, device_busy_share=busy_ms / prof_event_ms,
@@ -789,6 +810,7 @@ def vo_phase(torch, dev, smi):
     check(ba_ok, f"global BA on the card differs from the CPU's: {ba_err}")
     check(draws_equal, "RANSAC draws differ between the card and the CPU")
     check(all(fixed_exact.values()), f"K4/K5 != plain on the VO's largest calls: {fixed_exact}")
+    check_fixed_signatures(fixed_sigs, check, "the VO")
     check(all(chunk_cmp["chunk_blocks_equal"].values()),
           f"chunks solved in blocks differ from the whole batch: {chunk_cmp['chunk_blocks_equal']}")
     k2 = {"launches": launches, "max_abs_err": k2_err, "ms": float(np.mean(k2_ms)),
@@ -804,12 +826,14 @@ def vo_phase(torch, dev, smi):
 @contextlib.contextmanager
 def largest_fixed_calls(torch):
     """While open, the SLAM layer's K4 and K5 calls (``slam/fixed.py``) keep
-    a clone of the operands of their largest call each: "contract" by
-    multiply-adds, "sum" by terms, "lu_solve" by systems x n^3.  Yields the
-    dict of (work, operands) they fill."""
+    a copy of the operands of their largest call each: "contract" by
+    multiply-adds, "sum" by terms, "lu_solve" by systems x n^3; and under
+    "signatures", of the first call of every distinct (entry, shapes,
+    strides), laid out as the call's own operands were.  Yields the dict
+    they fill."""
     from feature_detector_tpu_torch.slam import fixed as SF
 
-    kept = {}
+    kept = {"signatures": {}}
     names = {"contract": "fixed_contract", "sum": "fixed_sum", "lu_solve": "fixed_lu_solve"}
     work = {"contract": lambda a, c: math.prod(torch.broadcast_shapes(a.shape[:-2], c.shape[:-2])) * a.shape[-2]
             * a.shape[-1] * c.shape[-1],
@@ -822,6 +846,9 @@ def largest_fixed_calls(torch):
             w = work[key](*args)
             if w > kept.get(key, (0,))[0]:
                 kept[key] = (w, tuple(x.clone() for x in args))
+            sig = (key, *((tuple(x.shape), tuple(x.stride())) for x in args))
+            if sig not in kept["signatures"]:
+                kept["signatures"][sig] = tuple(strided_copy(torch, x) for x in args)
             return saved[key](*args)
         return call
 
@@ -832,6 +859,55 @@ def largest_fixed_calls(torch):
     finally:
         for key, name in names.items():
             setattr(SF, name, saved[key])
+
+
+def check_fixed_signatures(sigs: dict, expect, path: str) -> None:
+    """Every replayed K4/K5 signature equal to its plain version, at most one
+    K4/K5 kernel a call and no other kernel.  (The trace may drop a few
+    kernels of a session, so it is held to at most one a call, and to some.)"""
+    expect(sigs["exact"] == sigs["signatures"], f"K4/K5 != plain on {path}'s call signatures: {sigs['differing']}")
+    expect(0 < sigs["fixed_kernels"] <= sigs["signatures"] and sigs["other_kernels"] == 0,
+           f"K4/K5 wrappers on {path}'s signatures: {sigs['fixed_kernels']} kernels for {sigs['signatures']} calls, "
+           f"others {sigs['other_kernel_names']}")
+
+
+def strided_copy(torch, x):
+    """A copy of ``x`` with its shape and strides (broadcast axes and gaps
+    included): the span of storage it reads, cloned, viewed the same way."""
+    if x.numel() == 0:
+        return x.clone()
+    span = 1 + sum((n - 1) * st for n, st in zip(x.shape, x.stride()))
+    flat = x.as_strided((span,), (1,), x.storage_offset()).clone()
+    return flat.as_strided(x.shape, x.stride(), 0)
+
+
+def fixed_signature_checks(torch, signatures: dict) -> dict:
+    """Replays one call of every distinct K4/K5 signature a run kept
+    (``largest_fixed_calls``) through the wrappers, once each under
+    torch.profiler, and holds each result against its plain version bit for
+    bit.  Counts the CUDA kernels of the replay: one K4 or K5 kernel a call,
+    and the others the wrappers launched (copies), which should be none.
+    The launch counters are left as they were."""
+    from feature_detector_tpu_torch.kernels import fixed_order as FO
+
+    wrapper = {"contract": FO.fixed_contract, "sum": FO.fixed_sum, "lu_solve": FO.fixed_lu_solve}
+    plain = {"contract": FO.contract_ref, "sum": FO.sum_ref, "lu_solve": FO.lu_solve_ref}
+    saved = FO.fixed_contract.launches, FO.fixed_lu_solve.launches
+    for sig, args in signatures.items():
+        wrapper[sig[0]](*args)
+    ours = tuple(k for names in FIXED_KERNELS.values() for k in names)
+    count_ours = lambda counts: sum(n for name, n in counts.items() if any(k in name for k in ours))
+    got = {}
+    _, counts, _ = profiled(torch, lambda: got.update({sig: wrapper[sig[0]](*args) for sig, args in signatures.items()}),
+                            complete=lambda counts: count_ours(counts) == len(signatures))
+    fixed_kernels = count_ours(counts)
+    others = {name[:90]: n for name, n in counts.items() if not any(k in name for k in ours)}
+    differing = [str(sig) for sig, args in signatures.items() if not same_bits(torch, got[sig], plain[sig[0]](*args))]
+    FO.fixed_contract.launches, FO.fixed_lu_solve.launches = saved
+    by_entry = {key: sum(sig[0] == key for sig in signatures) for key in wrapper}
+    return {"signatures": len(signatures), "by_entry": by_entry, "exact": len(signatures) - len(differing),
+            "differing": differing[:8], "fixed_kernels": fixed_kernels, "other_kernels": sum(others.values()),
+            "other_kernel_names": others}
 
 
 @contextlib.contextmanager
@@ -854,8 +930,10 @@ def chunk_blocks():
 
 
 def same_bits(torch, got, want) -> bool:
-    """Equal bit for bit, a NaN equal to a NaN."""
-    return got.shape == want.shape and bool(((got == want) | (got.isnan() & want.isnan())).all())
+    """Equal bit for bit (the sign of a zero included), a NaN equal to a NaN."""
+    if got.shape != want.shape:
+        return False
+    return bool(((got.view(torch.int32) == want.view(torch.int32)) | (got.isnan() & want.isnan())).all())
 
 
 def fixed_bound(nbytes: int, ops: int):
@@ -871,17 +949,12 @@ def traced_kernel_ms(torch, calls: dict, iters: int) -> dict:
     kernel names, from the raw trace of one torch.profiler session that
     makes ``iters`` calls of each fn in turn (``traced_device_ms``); None
     where the trace holds none of them."""
-    from torch.profiler import ProfilerActivity, profile
-
     for fn, _ in calls.values():
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for fn, _ in calls.values():
-            for _ in range(iters):
-                fn()
-        torch.cuda.synchronize()
-    per_kernel, _ = traced_device_ms(torch, prof)
+    seen = lambda counts: all(sum(c for k, c in counts.items() if any(n in k for n in kernels)) >= iters
+                              for _, kernels in calls.values())
+    per_kernel, _, _ = profiled(torch, lambda: [fn() for fn, _ in calls.values() for _ in range(iters)],
+                                complete=seen)
     out = {}
     for name, (_, kernels) in calls.items():
         total = sum(ms for k, ms in per_kernel.items() if any(n in k for n in kernels))
@@ -897,7 +970,8 @@ def fixed_kernel_entries(torch, calls: dict, launches: dict, path: str) -> tuple
     of the largest calls ``largest_fixed_calls`` kept on ``path``, and
     timed there (kernel, plain version, and one PyTorch call computing the
     same function as yardstick: ``torch.matmul``, ``torch.sum``,
-    ``torch.linalg.solve_ex``; the port never calls them there).  Returns
+    ``torch.linalg.solve_ex``; the port never calls them there); and on a
+    rank's share of them (the first FIXED_RANK_SHARE problems).  Returns
     (the two kernel-line entries, whether every comparison held)."""
     from feature_detector_tpu_torch.kernels import fixed_order as FO
 
@@ -914,13 +988,25 @@ def fixed_kernel_entries(torch, calls: dict, launches: dict, path: str) -> tuple
     saved = FO.fixed_contract.launches, FO.fixed_lu_solve.launches
     batch = math.prod(torch.broadcast_shapes(a.shape[:-2], c.shape[:-2]))
     (m, k), n = a.shape[-2:], c.shape[-1]
-    k4_bound = fixed_bound(4 * (a.numel() + c.numel() + got.numel()), 2 * batch * m * n * k)
+    k4_ops = 2 * batch * m * n * k
+    k4_bound = fixed_bound(4 * (a.numel() + c.numel() + got.numel()), k4_ops)
     n_sys, n_lu = math.prod(torch.broadcast_shapes(s.shape[:-2], rhs.shape[:-1])), s.shape[-1]
     k5_bound = fixed_bound(4 * (s.numel() + rhs.numel() + got_lu.numel()), n_sys * (2 * n_lu ** 3 // 3 + 2 * n_lu ** 2))
     lib_solve = lambda: torch.linalg.solve_ex(s, rhs[..., None])
     dev_ms = traced_kernel_ms(torch, {"contract": (lambda: FO.fixed_contract(a, c), FIXED_KERNELS["fixed_contract"]),
                                       "lu_solve": (lambda: FO.fixed_lu_solve(s, rhs), FIXED_KERNELS["fixed_lu_solve"])},
                               10)
+    # A rank's share on four cards: the first FIXED_RANK_SHARE problems, laid out as the whole call's.
+    share = FIXED_RANK_SHARE
+    k4_batch, k5_batch = torch.broadcast_shapes(a.shape[:-2], c.shape[:-2]), torch.broadcast_shapes(s.shape[:-2],
+                                                                                                    rhs.shape[:-1])
+    a_r = a.expand(*k4_batch, m, k).flatten(0, -3)[:share]
+    c_r = c.expand(*k4_batch, k, n).flatten(0, -3)[:share]
+    s_r = s.expand(*k5_batch, n_lu, n_lu).flatten(0, -3)[:share]
+    rhs_r = rhs.expand(*k5_batch, n_lu).flatten(0, -2)[:share]
+    share_exact = (same_bits(torch, FO.fixed_contract(a_r, c_r), FO.contract_ref(a_r, c_r))
+                   and same_bits(torch, FO.fixed_lu_solve(s_r, rhs_r), FO.lu_solve_ref(s_r, rhs_r)))
+    exact["rank_share"] = share_exact
     k4 = {"name": "fixed_contract (K4)", "route": "cuda", "source": FIXED_SOURCE, "replaces": FIXED_REPLACES,
           "launches": launches["contract"], "max_abs_err": max(err(got, want), err(got_sum, want_sum)),
           "ms": cuda_ms(torch, lambda: FO.fixed_contract(a, c), 20),
@@ -928,7 +1014,13 @@ def fixed_kernel_entries(torch, calls: dict, launches: dict, path: str) -> tuple
           "plain_ms": cuda_ms(torch, lambda: FO.contract_ref(a, c), 3),
           "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
           "library_ms": cuda_ms(torch, lambda: torch.matmul(a, c), 20),
-          "shape": {"a": list(a.shape), "c": list(c.shape)}, "path": path,
+          "no_fma_bound_ms": 1e3 * k4_ops / PEAK_F32_SEPARATE_OPS_PER_S,
+          "shape": {"a": list(a.shape), "c": list(c.shape)}, "strides": {"a": list(a.stride()), "c": list(c.stride())},
+          "path": path,
+          "rank_share": {"problems": share, "ms": cuda_ms(torch, lambda: FO.fixed_contract(a_r, c_r), 20),
+                         "library_ms": cuda_ms(torch, lambda: torch.matmul(a_r, c_r), 20),
+                         "bound_ms": fixed_bound(4 * (a_r.numel() + c_r.numel() + share * m * n),
+                                                 2 * share * m * n * k)[0]},
           "largest_sum": {"shape": list(x.shape), "ms": cuda_ms(torch, lambda: FO.fixed_sum(x), 20),
                           "plain_ms": cuda_ms(torch, lambda: FO.sum_ref(x), 3),
                           "library_ms": cuda_ms(torch, lambda: x.sum(-1), 20),
@@ -940,7 +1032,9 @@ def fixed_kernel_entries(torch, calls: dict, launches: dict, path: str) -> tuple
           "plain_ms": cuda_ms(torch, lambda: FO.lu_solve_ref(s, rhs), 2),
           "bound_ms": k5_bound[0], "bound_by": k5_bound[1], "library_ms": cuda_ms(torch, lib_solve, 20),
           "shape": {"a": list(s.shape), "b": list(rhs.shape)}, "path": path,
-          "note": "latency-bound: a chain of n pivot steps, each two or three block barriers"}
+          "rank_share": {"systems": share, "ms": cuda_ms(torch, lambda: FO.fixed_lu_solve(s_r, rhs_r), 20),
+                         "library_ms": cuda_ms(torch, lambda: torch.linalg.solve_ex(s_r, rhs_r[..., None]), 20)},
+          "note": "latency-bound: n dependent pivot steps, each a 64-bit key reduction and one block barrier"}
     FO.fixed_contract.launches, FO.fixed_lu_solve.launches = saved
     return (k4, k5), exact
 
@@ -1279,8 +1373,6 @@ def train_model(torch, dev, name: str, batches: list) -> tuple:
     against the CPU's, then TRAIN_WARMUP + TRAIN_STEPS bfloat16 steps
     timed by CUDA events, and one profiled step.  Returns (its JSON fields,
     the trained model)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from feature_detector_tpu_torch.models import train_disk, train_superpoint
     from feature_detector_tpu_torch.models.disk import Disk, normalised_biases
     from feature_detector_tpu_torch.models.superpoint import SuperPoint
@@ -1338,15 +1430,8 @@ def train_model(torch, dev, name: str, batches: list) -> tuple:
     check(last5 < first5, f"{name}: the mean of the last 5 losses {last5} is not below the first 5's {first5}")
 
     # One step under the profiler: the kernels a step runs and the card's busy share.
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        step(batches[-1])
-        end.record()
-        torch.cuda.synchronize()
-    event_ms = start.elapsed_time(end)
-    per_kernel = {e.key: (e.device_time_total / 1e3, e.count) for e in prof.key_averages() if e.device_time_total > 0}
+    step_ms_by_kernel, step_counts, event_ms = profiled(torch, lambda: step(batches[-1]))
+    per_kernel = {k: (ms, step_counts[k]) for k, ms in step_ms_by_kernel.items() if ms > 0}
     busy_ms = sum(ms for ms, _ in per_kernel.values())
     check(busy_ms > 0, f"{name}: the profiler saw no device time in a training step")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TRAIN_TOP_KERNELS]
@@ -1570,8 +1655,6 @@ def legacy_phase(torch, dev, smi) -> tuple:
     sequence (K2 twice a chunk frame).  K1 and K2 against their plain
     versions on the path's own maps.  Emits one JSON line; returns K1's and
     K2's numbers on this path."""
-    from torch.profiler import ProfilerActivity, profile
-
     from feature_detector_tpu_torch.core.config import BriefOptions, DetectorOptions, HarrisOptions
     from feature_detector_tpu_torch.core.types import Features
     from feature_detector_tpu_torch.frontend.detector import detection_maps
@@ -1618,16 +1701,9 @@ def legacy_phase(torch, dev, smi) -> tuple:
     check(batch["ate_m"] < LEGACY_ATE_M, f"legacy VO, batch front-end: ATE {batch['ate_m']} m")
 
     # One run under the profiler: the card's busy time against the run's event time.
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        run_visual_odometry(imgs, seq.cam, max_track_obs=LEGACY_MAX_TRACK_OBS)
-        end.record()
-        torch.cuda.synchronize()
-    prof_event_ms = start.elapsed_time(end)
-    per_kernel, counts = traced_device_ms(torch, prof)
+    per_kernel, counts, prof_event_ms = profiled(
+        torch, lambda: run_visual_odometry(imgs, seq.cam, max_track_obs=LEGACY_MAX_TRACK_OBS))
     profile_s = time.perf_counter() - t0
     busy_ms = sum(per_kernel.values())
     check(busy_ms > 0, "the profiler saw no device time on the legacy VO path")
@@ -2585,6 +2661,8 @@ def world_rank(torch, dev, mesh, rank: int, world: int) -> dict:
     fixed_entries, fixed_exact = fixed_kernel_entries(torch, fixed_calls, fixed_mesh, "the VO over the mesh")
     res["fixed_exact"] = fixed_exact
     expect(all(fixed_exact.values()), f"rank {rank}: K4/K5 != plain on the VO's largest calls: {fixed_exact}")
+    res["fixed_signatures"] = fixed_signature_checks(torch, fixed_calls["signatures"])
+    check_fixed_signatures(res["fixed_signatures"], expect, f"rank {rank}'s VO over the mesh")
 
     # The collectives alone, all ranks after a barrier: the dense BA's packed system (float64, n6^2 + n6 + 1
     # values), the camera-sharded CG's all-gather of a block of rows, SuperPoint's flat float32 gradient.

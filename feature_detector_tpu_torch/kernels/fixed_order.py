@@ -19,14 +19,20 @@ alone on the CPU and on the card.
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version
 (``contract_ref``, ``sum_ref``, ``lu_solve_ref``).  There is no fallback from
-one to the other.  ``fixed_contract.launches`` counts K4's launches (both
+one to the other.  The kernels read their operands as the strided views
+they are (transposed, broadcast, up to ``MAX_BATCH_DIMS`` batch axes after
+``batch_layout`` merges them), so a call copies nothing and launches one
+kernel.  ``fixed_contract.launches`` counts K4's launches (both
 entry points), ``fixed_lu_solve.launches`` K5's.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional
+import functools
+import math
+import struct
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +42,7 @@ from . import _build
 SERIAL_MAX_K = 16  # kSerialMaxK of csrc/fixed_order.cu: one serial sum an output at and below it
 LANES = 32  # kLanes: above it, 32 strided partial sums folded pairwise
 LU_MAX_N = 104  # kLuMaxN
+MAX_BATCH_DIMS = 8  # kMaxBatchDims: batch axes a launch takes, after batch_layout merges them
 
 
 def lanes(k: int) -> int:
@@ -118,50 +125,124 @@ def _zeros_product(a, c):
     return a.new_zeros(*batch, a.shape[-2], c.shape[-1])
 
 
+def batch_layout(shape: Sequence[int], *strides: Sequence[int]) -> Tuple[List[int], List[List[int]]]:
+    """The batch axes ``shape`` of operands with the given strides, merged
+    into as few axes as keep each operand a strided view: axes of size 1
+    go, and an axis joins the next one where every operand's stride on it
+    is the next one's stride times its size.  Returns (sizes, one stride
+    list per operand), innermost last.  A contiguous output over ``shape``
+    is contiguous over the merged axes in the same order."""
+    sizes: List[int] = []
+    merged: List[List[int]] = [[] for _ in strides]
+    for i, size in enumerate(shape):
+        if size == 1:
+            continue
+        step = [st[i] for st in strides]
+        if sizes and all(m[-1] == s * size for m, s in zip(merged, step)):
+            sizes[-1] *= size
+            for m, s in zip(merged, step):
+                m[-1] = s
+        else:
+            sizes.append(size)
+            for m, s in zip(merged, step):
+                m.append(s)
+    return sizes, merged
+
+
+# A launch's parameters as csrc/fixed_order.cu reads them: 64-bit integers, the head then the batch axes.
+_PARAMS = {"fd_fixed_contract": struct.Struct(f"{9 + 3 * MAX_BATCH_DIMS}q"),
+           "fd_fixed_lu_solve": struct.Struct(f"{6 + 3 * MAX_BATCH_DIMS}q")}
+
+
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("fixed_order")
-    fn = lib.fd_fixed_contract
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int] + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
-    fn = lib.fd_fixed_lu_solve
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + \
-        [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
+    for name in _PARAMS:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_char_p, ctypes.c_void_p]
     return lib
 
 
 def _check(name: str, *xs: torch.Tensor) -> None:
+    device = xs[0].device
     for x in xs:
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: float32 operands only, got {x.dtype}")
-    if len({x.device for x in xs}) != 1:
-        raise ValueError(f"{name}: operands on {[str(x.device) for x in xs]}")
-    if xs[0].device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name}: unsupported device {xs[0].device}")
+        if x.device != device:
+            raise ValueError(f"{name}: operands on {[str(x.device) for x in xs]}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: unsupported device {device}")
 
 
-def _launch_contract(a: torch.Tensor, c: Optional[torch.Tensor], out_shape) -> torch.Tensor:
-    """K4 on [B, M, K] ``a`` and [B, K, N] ``c`` (or None: N = 1), each a
-    strided view; returns [B, M, N] reshaped to ``out_shape``."""
-    n_batch, m, k = a.shape
-    n = 1 if c is None else c.shape[-1]
-    if k > SERIAL_MAX_K:  # a warp reads 32 consecutive k: hand it k-contiguous operands
-        if a.stride(-1) != 1:
-            a = a.contiguous()
-        if c is not None and c.stride(-2) != 1:
-            c = c.transpose(-1, -2).contiguous().transpose(-1, -2)
-    out = torch.empty((n_batch, m, n), dtype=torch.float32, device=a.device)
-    if out.numel():
-        cs = (0, 0, 0) if c is None else c.stride()
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream(a.device).cuda_stream
-            err = _library().fd_fixed_contract(a.data_ptr(), None if c is None else c.data_ptr(), out.data_ptr(),
-                                               n_batch, m, n, k, *a.stride(), *cs, stream)
-        if err != 0:
-            raise RuntimeError(f"fixed_contract kernel launch failed: cudaError {err}")
-        fixed_contract.launches += 1
-    return out.reshape(out_shape)
+def _launch(entry: str, device: torch.device, ptrs: tuple, params: bytes) -> None:
+    """One launch of ``entry`` on ``device``'s current stream.  The library
+    launches on the current card: the wrapper makes ``device`` current where
+    it is not."""
+    fn = getattr(_library(), entry)
+    if device.index == torch.cuda.current_device():
+        err = fn(*ptrs, params, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*ptrs, params, torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {err}")
+
+
+def _broadcast_strides(shape: Sequence[int], stride: Sequence[int], batch: Sequence[int]) -> List[int]:
+    """An operand's strides over the batch axes ``batch`` when its own batch
+    axes ``shape`` (strides ``stride``) broadcast to them: 0 where it is
+    broadcast."""
+    lead = len(batch) - len(shape)
+    return [0] * lead + [st if size == b else 0 for size, st, b in zip(shape, stride, batch[lead:])]
+
+
+def _pack(entry: str, head: list, batch: Sequence[int], s0: Sequence[int], s1: Sequence[int]) -> bytes:
+    """A launch's parameters as csrc/fixed_order.cu reads them: ``head`` with
+    the batch count first, then the batch axes merged by ``batch_layout``."""
+    sizes, (m0, m1) = batch_layout(batch, s0, s1)
+    if len(sizes) > MAX_BATCH_DIMS:
+        raise ValueError(f"{entry}: {len(sizes)} batch axes after merging, the kernel takes {MAX_BATCH_DIMS}")
+    pad = [0] * (MAX_BATCH_DIMS - len(sizes))
+    return _PARAMS[entry].pack(math.prod(sizes), *head, len(sizes), *sizes, *pad, *m0, *pad, *m1, *pad)
+
+
+def _check_outputs(name: str, count: int) -> None:
+    if count >= 2 ** 31:
+        raise ValueError(f"{name}: {count} outputs, the kernel takes fewer than 2^31")
+
+
+# The plans depend on shapes and strides alone, and a VO run makes some 80 distinct calls many times over: they
+# are kept, so that a call spends its host time on the launch.
+@functools.lru_cache(maxsize=4096)
+def _contract_plan(a_shape: tuple, a_stride: tuple, c_shape: tuple, c_stride: tuple) -> Tuple[tuple, bytes]:
+    """(output shape, launch parameters) of K4 on a [..., M, K] @ c [..., K, N]."""
+    batch = tuple(torch.broadcast_shapes(a_shape[:-2], c_shape[:-2]))
+    (m, k), n = a_shape[-2:], c_shape[-1]
+    _check_outputs("fixed_contract", math.prod(batch) * m * n)
+    sa = _broadcast_strides(a_shape[:-2], a_stride[:-2], batch)
+    sc = _broadcast_strides(c_shape[:-2], c_stride[:-2], batch)
+    return (*batch, m, n), _pack("fd_fixed_contract", [m, n, k, *a_stride[-2:], *c_stride[-2:]], batch, sa, sc)
+
+
+@functools.lru_cache(maxsize=4096)
+def _sum_plan(shape: tuple, stride: tuple) -> bytes:
+    """Launch parameters of K4 summing x [..., K] over K: the innermost output
+    axis (after merging) is K4's M, the others its batch."""
+    _check_outputs("fixed_sum", math.prod(shape[:-1]))
+    sizes, (sx,) = batch_layout(shape[:-1], stride[:-1])
+    m, sam = (sizes.pop(), sx.pop()) if sizes else (1, 0)
+    return _pack("fd_fixed_contract", [m, 1, shape[-1], sam, stride[-1], 0, 0], sizes, sx, [0] * len(sx))
+
+
+@functools.lru_cache(maxsize=4096)
+def _solve_plan(a_shape: tuple, a_stride: tuple, b_shape: tuple, b_stride: tuple) -> Tuple[tuple, bytes]:
+    """(output shape, launch parameters) of K5 on a [..., n, n] and b [..., n]."""
+    n = a_shape[-1]
+    batch = tuple(torch.broadcast_shapes(a_shape[:-2], b_shape[:-1]))
+    sa = _broadcast_strides(a_shape[:-2], a_stride[:-2], batch)
+    sb = _broadcast_strides(b_shape[:-1], b_stride[:-1], batch)
+    return (*batch, n), _pack("fd_fixed_lu_solve", [n, *a_stride[-2:], b_stride[-1]], batch, sa, sb)
 
 
 def fixed_contract(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -173,12 +254,14 @@ def fixed_contract(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"fixed_contract: shapes {tuple(a.shape)} @ {tuple(c.shape)}")
     if a.device.type == "cpu":
         return contract_ref(a, c)
-    batch = torch.broadcast_shapes(a.shape[:-2], c.shape[:-2])
-    (m, k), n = a.shape[-2:], c.shape[-1]
-    if k == 0:
+    if a.shape[-1] == 0:
         return _zeros_product(a, c)
-    return _launch_contract(a.expand(*batch, m, k).reshape(-1, m, k), c.expand(*batch, k, n).reshape(-1, k, n),
-                            (*batch, m, n))
+    out_shape, params = _contract_plan(a.shape, a.stride(), c.shape, c.stride())
+    out = a.new_empty(out_shape)
+    if out.numel():
+        _launch("fd_fixed_contract", a.device, (a.data_ptr(), c.data_ptr(), out.data_ptr()), params)
+        fixed_contract.launches += 1
+    return out
 
 
 def fixed_sum(x: torch.Tensor) -> torch.Tensor:
@@ -188,10 +271,13 @@ def fixed_sum(x: torch.Tensor) -> torch.Tensor:
         raise ValueError("fixed_sum: a scalar has no axis to sum")
     if x.device.type == "cpu":
         return sum_ref(x)
-    k = x.shape[-1]
-    if k == 0:
+    if x.shape[-1] == 0:
         return x.new_zeros(x.shape[:-1])
-    return _launch_contract(x.reshape(-1, 1, k), None, x.shape[:-1])
+    out = x.new_empty(x.shape[:-1])
+    if out.numel():
+        _launch("fd_fixed_contract", x.device, (x.data_ptr(), None, out.data_ptr()), _sum_plan(x.shape, x.stride()))
+        fixed_contract.launches += 1
+    return out
 
 
 def fixed_lu_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -206,19 +292,12 @@ def fixed_lu_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"fixed_lu_solve: n = {n}, the kernel takes 1 <= n <= {LU_MAX_N}")
     if a.device.type == "cpu":
         return lu_solve_ref(a, b)
-    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-1])
-    am = a.expand(*batch, n, n).reshape(-1, n, n)
-    bm = b.expand(*batch, n).reshape(-1, n)
-    x = torch.empty(bm.shape, dtype=torch.float32, device=a.device)
+    out_shape, params = _solve_plan(a.shape, a.stride(), b.shape, b.stride())
+    x = a.new_empty(out_shape)
     if x.numel():
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream(a.device).cuda_stream
-            err = _library().fd_fixed_lu_solve(am.data_ptr(), bm.data_ptr(), x.data_ptr(), am.shape[0], n,
-                                               *am.stride(), *bm.stride(), stream)
-        if err != 0:
-            raise RuntimeError(f"fixed_lu_solve kernel launch failed: cudaError {err}")
+        _launch("fd_fixed_lu_solve", a.device, (a.data_ptr(), b.data_ptr(), x.data_ptr()), params)
         fixed_lu_solve.launches += 1
-    return x.reshape(*batch, n)
+    return x
 
 
 fixed_contract.launches = 0

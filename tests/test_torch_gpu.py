@@ -226,13 +226,15 @@ def _operands(rng, batch, m, k, n):
 def _systems(rng, batch, n):
     a = rng.standard_normal((batch, n, n)).astype(np.float32)
     a[:, np.arange(n), np.arange(n)] += np.float32(2 * n)
-    a[:, [0, 1]] = a[:, [1, 0]]  # the pivot search has rows to swap
+    if n > 1:
+        a[:, [0, 1]] = a[:, [1, 0]]  # the pivot search has rows to swap
     return a, rng.standard_normal((batch, n)).astype(np.float32)
 
 
 def _same(got, want) -> bool:
-    """Bit for bit, a NaN equal to a NaN."""
-    return got.shape == want.shape and bool(((got == want) | (got.isnan() & want.isnan())).all())
+    """Bit for bit (the sign of a zero included), a NaN equal to a NaN."""
+    bits = got.view(torch.int32) == want.view(torch.int32)
+    return got.shape == want.shape and bool((bits | (got.isnan() & want.isnan())).all())
 
 
 @pytest.mark.parametrize("name", sorted(FIXED_CONTRACT_SHAPES))
@@ -250,6 +252,124 @@ def test_fixed_contract_kernel_equals_ref(cuda, name):
     assert float((got.double() - a.double() @ c.double()).abs().max()) < 1e-2
 
 
+# K on both sides of every step of K4's order (the serial bound 16, whole and partial 32-term steps, the staged
+# chunk of 64 terms), up to the reduced system's 1536 and the cost's 6144.
+FIXED_K = [1, 2, 16, 17, 31, 32, 33, 63, 64, 65, 1536, 6144]
+# M x N that are no multiple of any register or block tile.
+FIXED_MN = [(1, 1), (1, 72), (3, 3), (5, 5), (6, 6), (71, 73), (72, 72), (73, 71), (81, 1), (5, 81), (81, 81)]
+# How each operand lies in memory: contiguous, transposed (the other axis contiguous), strided (every other
+# element of a larger tensor), and broadcast (one problem for the whole batch, batch stride 0).
+FIXED_LAYOUTS = ["contiguous", "transposed", "strided", "broadcast"]
+
+
+def _laid_out(x, layout):
+    """x [B, R, C] on the card as a view laid out as ``layout``; equal values."""
+    if layout == "transposed":
+        return x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    if layout == "strided":
+        wide = torch.zeros((*x.shape[:-1], 2 * x.shape[-1]), dtype=x.dtype, device=x.device)
+        wide[..., ::2] = x
+        return wide[..., ::2]
+    if layout == "broadcast":
+        return x[:1].expand_as(x)
+    return x
+
+
+def _signed_operands(rng, batch, m, k, n):
+    """Operands with exact zeros of both signs, so that a wrong fold or a
+    dropped +0 term shows in the sign of a zero output."""
+    a, c = _operands(rng, batch, m, k, n)
+    a[..., ::3, :] = -0.0
+    c[..., :, ::4] = 0.0
+    return a, c
+
+
+@pytest.mark.parametrize("k", FIXED_K)
+def test_fixed_contract_every_k_equals_ref(cuda, k):
+    rng = np.random.default_rng(100 + k)
+    for batch, m, n in ((2, 72, 72), (3, 5, 5), (1, 3, 1)):
+        a, c = (torch.from_numpy(x).to(cuda) for x in _signed_operands(rng, batch, m, k, n))
+        got = FO.fixed_contract(a, c)
+        torch.cuda.synchronize()
+        assert _same(got, FO.contract_ref(a, c)), (batch, m, k, n)
+
+
+@pytest.mark.parametrize("mn", FIXED_MN, ids=lambda mn: f"{mn[0]}x{mn[1]}")
+def test_fixed_contract_every_tile_edge_equals_ref(cuda, mn):
+    m, n = mn
+    rng = np.random.default_rng(7 * m + n)
+    for batch, k in ((2, 24), (1, 100), (3, 1536)):
+        a, c = (torch.from_numpy(x).to(cuda) for x in _signed_operands(rng, batch, m, k, n))
+        assert _same(FO.fixed_contract(a, c), FO.contract_ref(a, c)), (batch, m, k, n)
+
+
+@pytest.mark.parametrize("a_layout", FIXED_LAYOUTS)
+@pytest.mark.parametrize("c_layout", FIXED_LAYOUTS)
+def test_fixed_contract_every_layout_equals_ref(cuda, a_layout, c_layout):
+    """Every combination of operand layouts, at K on both paths: bit for bit,
+    and one kernel a call (no copy first)."""
+    rng = np.random.default_rng(len(a_layout) * 31 + len(c_layout))
+    for batch, m, k, n in ((3, 72, 1536, 72), (4, 6, 40, 6), (5, 3, 24, 1), (4, 6, 3, 3)):
+        a0, c0 = (torch.from_numpy(x).to(cuda) for x in _operands(rng, batch, m, k, n))
+        a, c = _laid_out(a0, a_layout), _laid_out(c0, c_layout)
+        before = FO.fixed_contract.launches
+        got = FO.fixed_contract(a, c)
+        torch.cuda.synchronize()
+        assert FO.fixed_contract.launches == before + 1
+        assert _same(got, FO.contract_ref(a.contiguous(), c.contiguous())), (batch, m, k, n)
+
+
+def test_fixed_contract_broadcast_batch_axes_equal_ref(cuda):
+    """Batch axes that broadcast and do not merge (the chunk solver's
+    [17, 2, 512, 12] against [17, 2, 1, 12]-style operands): one kernel, the
+    plain version's bits."""
+    rng = np.random.default_rng(21)
+    for sa, sc, k in (((2, 2, 5, 4), (2, 2, 1, 4), 40), ((2, 1, 5, 1), (1, 3, 1, 4), 3), ((4, 1, 3), (1, 5, 1), 17)):
+        a = torch.from_numpy(rng.standard_normal((*sa, 6, k)).astype(np.float32)).to(cuda)
+        c = torch.from_numpy(rng.standard_normal((*sc, k, 3)).astype(np.float32)).to(cuda)
+        c = c.transpose(-1, -2).contiguous().transpose(-1, -2)
+        before = FO.fixed_contract.launches
+        got = FO.fixed_contract(a, c)
+        torch.cuda.synchronize()
+        assert FO.fixed_contract.launches == before + 1
+        assert _same(got, FO.contract_ref(a, c))
+
+
+def test_fixed_contract_nonfinite_operands_equal_ref(cuda):
+    rng = np.random.default_rng(22)
+    for k in (5, 40, 1536):
+        a, c = _operands(rng, 2, 8, k, 8)
+        a[0, 1, :3] = np.inf
+        a[1, 2, 7 % k] = -np.inf
+        c[0, :, 2] = 0.0  # inf x 0 = NaN
+        c[1, 3 % k, 5] = np.nan
+        a, c = torch.from_numpy(a).to(cuda), torch.from_numpy(c).to(cuda)
+        got = FO.fixed_contract(a, c)
+        assert _same(got, FO.contract_ref(a, c))
+        assert not torch.isfinite(got).all()
+
+
+def test_fixed_contract_one_kernel_a_call(cuda):
+    """One call on the reduced system's operands, c not k-contiguous (as the
+    chunk solver hands it) and a transposed: exactly one CUDA kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(23)
+    a, c = (torch.from_numpy(x).to(cuda) for x in _operands(rng, 34, 72, 1536, 72))
+    a = a.transpose(-1, -2).contiguous().transpose(-1, -2)
+    FO.fixed_contract(a, c)
+    torch.cuda.synchronize()
+    for _ in range(3):  # CUPTI now and then hands back an empty trace: take it again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            FO.fixed_contract(a, c)
+            torch.cuda.synchronize()
+        kernels = [e.name() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "contract_tiled" in kernels[0], kernels
+
+
 @pytest.mark.parametrize("name", sorted(FIXED_SUM_SHAPES))
 def test_fixed_sum_kernel_equals_ref(cuda, name):
     x = torch.from_numpy(np.random.default_rng(12).standard_normal(FIXED_SUM_SHAPES[name]).astype(np.float32)).cuda()
@@ -258,6 +378,10 @@ def test_fixed_sum_kernel_equals_ref(cuda, name):
     torch.cuda.synchronize()
     assert FO.fixed_contract.launches == before + 1
     assert _same(got, FO.sum_ref(x))
+    # The same terms strided (the sum axis not contiguous): one launch, the same bits.
+    xt = x.transpose(0, -1).contiguous().transpose(0, -1)
+    assert _same(FO.fixed_sum(xt), got)
+    assert FO.fixed_contract.launches == before + 2
 
 
 @pytest.mark.parametrize("name", sorted(FIXED_LU_SHAPES))
@@ -270,6 +394,56 @@ def test_fixed_lu_solve_kernel_equals_ref(cuda, name):
     assert _same(got, FO.lu_solve_ref(a, b))
     want = torch.linalg.solve(a.double(), b.double())
     assert float((got.double() - want).abs().max()) < 1e-4
+
+
+# n on both sides of the packed (n <= 32, several systems a warp) and the block design (n > 32), up to LU_MAX_N.
+FIXED_LU_N = [1, 2, 5, 6, 7, 8, 32, 33, 72, 104]
+
+
+def _tied_systems(rng, batch, n):
+    """Small-integer systems: many pivot candidates of equal magnitude and
+    opposite sign; column 0 of system 0 ties rows 1 and 2 above row 0."""
+    a = rng.integers(-3, 4, (batch, n, n)).astype(np.float32)
+    a[:, np.arange(n), np.arange(n)] += np.float32(n)
+    if n >= 3:
+        a[0, :3, 0] = (1.0, -(n + 5.0), n + 5.0)
+    return a, rng.integers(-5, 6, (batch, n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", FIXED_LU_N)
+def test_fixed_lu_solve_every_n_equals_ref(cuda, n):
+    rng = np.random.default_rng(200 + n)
+    for batch in (1, 3, 41):
+        for make in (_systems, _tied_systems):
+            a, b = (torch.from_numpy(x).cuda() for x in make(rng, batch, n))
+            got = FO.fixed_lu_solve(a, b)
+            torch.cuda.synchronize()
+            assert _same(got, FO.lu_solve_ref(a, b)), (batch, n, make.__name__)
+    # A transposed, broadcast a and a strided b: one launch, the same bits.
+    a, b = (torch.from_numpy(x).cuda() for x in _systems(rng, 4, n))
+    at = a[:1].transpose(-1, -2).contiguous().transpose(-1, -2).expand_as(a)
+    bs = torch.stack([b, b], -1)[..., 0]
+    before = FO.fixed_lu_solve.launches
+    assert _same(FO.fixed_lu_solve(at, bs), FO.lu_solve_ref(a[:1].expand_as(a).contiguous(), b))
+    assert FO.fixed_lu_solve.launches == before + 1
+
+
+@pytest.mark.parametrize("n", [2, 6, 33, 72])
+def test_fixed_lu_solve_nan_pivots_equal_ref(cuda, n):
+    """NaN in a pivot column (a NaN is the largest; the first NaN wins), two
+    NaNs in one column, a whole NaN row and an exactly singular system."""
+    rng = np.random.default_rng(300 + n)
+    a, b = _systems(rng, 5, n)
+    a[0, n - 1, 0] = np.nan
+    a[1, 1, 1], a[1, n - 1, 1] = np.nan, np.nan
+    a[2, n // 2] = np.nan
+    a[3, 1] = a[3, 0]
+    a[4, :, n - 1] = -a[4, :, n - 1]
+    a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    got = FO.fixed_lu_solve(a, b)
+    torch.cuda.synchronize()
+    assert _same(got, FO.lu_solve_ref(a, b))
+    assert not torch.isfinite(got[:4]).all()
 
 
 def test_fixed_lu_solve_kernel_singular(cuda):
