@@ -19,6 +19,7 @@ from ..core.device import DeviceLike, as_tensor
 from ..core.types import Features
 from ..kernels import detect as K
 from ..kernels.greedy import greedy_select
+from ..utils import trace
 
 
 def _default_sub(kind: str):
@@ -121,20 +122,22 @@ def detect_good_features_batch(
     the greedy selection of the whole stack is one kernel launch.
     """
     sub = _default_sub(kind) if sub is None else sub
-    images = as_tensor(images, device)
-    capacity = opts.max_features
-    mask = torch.ones(images.shape[-2:], dtype=torch.int32, device=images.device)
-    cand, raw_resp = _candidate_map(images, mask, kind, opts, sub)
-    max_picks = max(1, min(needed_num, capacity))
-    new_uv, new_resp, new_valid = greedy_select(cand, max_picks, needed_num, opts.min_feature_distance)
-    if opts.subpixel:
-        new_uv = K.subpixel_refine(raw_resp, new_uv, new_valid)
-    pad = capacity - max_picks
-    if pad:
-        new_uv = torch.nn.functional.pad(new_uv, (0, 0, 0, pad))
-        new_resp = torch.nn.functional.pad(new_resp, (0, pad))
-        new_valid = torch.nn.functional.pad(new_valid, (0, pad))
-    return Features(uv=new_uv, response=new_resp, valid=new_valid)
+    with trace.span("frontend.detect_batch"):
+        images = as_tensor(images, device)
+        capacity = opts.max_features
+        mask = torch.ones(images.shape[-2:], dtype=torch.int32, device=images.device)
+        with trace.span(f"kernels.{kind}", device=True):
+            cand, raw_resp = _candidate_map(images, mask, kind, opts, sub)
+        max_picks = max(1, min(needed_num, capacity))
+        new_uv, new_resp, new_valid = greedy_select(cand, max_picks, needed_num, opts.min_feature_distance)
+        if opts.subpixel:
+            new_uv = K.subpixel_refine(raw_resp, new_uv, new_valid)
+        pad = capacity - max_picks
+        if pad:
+            new_uv = torch.nn.functional.pad(new_uv, (0, 0, 0, pad))
+            new_resp = torch.nn.functional.pad(new_resp, (0, pad))
+            new_valid = torch.nn.functional.pad(new_valid, (0, pad))
+        return Features(uv=new_uv, response=new_resp, valid=new_valid)
 
 
 def sparsify_features(

@@ -36,6 +36,7 @@ from ..kernels.nn_ops import STRIDE, sample_descriptor_grid
 from ..models import weights as W
 from ..models.disk import Disk, preprocess_gray_rgb
 from ..models.superpoint import SuperPoint, nms_head, preprocess_gray
+from ..utils import trace
 from .detector import append_after_existing
 
 NMS_TYPES = (NNModelType.SUPERPOINT_NMS, NNModelType.DISK_NMS)
@@ -66,8 +67,9 @@ def _check_capacity(existing: Features, opts: NNDetectorOptions) -> int:
 def heatmap_candidates(heatmap: torch.Tensor, existing: Features, opts: NNDetectorOptions) -> torch.Tensor:
     """The heatmap types' candidate map for greedy selection: the heatmap
     where it exceeds ``min_response`` outside the mask, 0 elsewhere."""
-    mask = create_nn_mask(tuple(heatmap.shape), existing.uv, existing.valid, opts)
-    return torch.where((heatmap > opts.min_response) & (mask != 0), heatmap, torch.zeros_like(heatmap))
+    with trace.span("frontend.nn_candidates"):
+        mask = create_nn_mask(tuple(heatmap.shape), existing.uv, existing.valid, opts)
+        return torch.where((heatmap > opts.min_response) & (mask != 0), heatmap, torch.zeros_like(heatmap))
 
 
 def select_features_from_heatmap(heatmap: torch.Tensor, existing: Features, opts: NNDetectorOptions) -> Features:
@@ -89,22 +91,23 @@ def nms_candidates(kpts: torch.Tensor, scores: torch.Tensor, existing: Features,
     truncated suppression mask).  Returns (score map ``[rows, cols]``
     float32, owner ``[rows * cols]``: the first such candidate of each
     pixel, clamped to K - 1 where there is none)."""
-    r, b = opts.min_feature_distance, opts.invalid_boundary
-    k = kpts.shape[0]
-    u = kpts[:, 0].to(torch.float32)
-    v = kpts[:, 1].to(torch.float32)
-    inb = (u >= b) & (u < cols - b) & (v >= b) & (v < rows - b)
-    near = (existing.valid[None, :]
-            & ((existing.uv[None, :, 0] - u[:, None]).abs() <= r)
-            & ((existing.uv[None, :, 1] - v[:, None]).abs() <= r))
-    ok = (scores > 0) & inb & ~near.any(dim=1)
-    flat = torch.where(ok, kpts[:, 1].to(torch.int64) * cols + kpts[:, 0].to(torch.int64), 0)
-    owner = torch.full((rows * cols,), k, dtype=torch.int64, device=scores.device)
-    owner.scatter_reduce_(0, flat, torch.where(ok, torch.arange(k, device=scores.device), k), reduce="amin")
-    owned = owner < k
-    owner = torch.clamp(owner, max=k - 1)
-    score_map = torch.where(owned, scores[owner], torch.zeros((), dtype=scores.dtype, device=scores.device))
-    return score_map.view(rows, cols), owner
+    with trace.span("frontend.nn_candidates"):
+        r, b = opts.min_feature_distance, opts.invalid_boundary
+        k = kpts.shape[0]
+        u = kpts[:, 0].to(torch.float32)
+        v = kpts[:, 1].to(torch.float32)
+        inb = (u >= b) & (u < cols - b) & (v >= b) & (v < rows - b)
+        near = (existing.valid[None, :]
+                & ((existing.uv[None, :, 0] - u[:, None]).abs() <= r)
+                & ((existing.uv[None, :, 1] - v[:, None]).abs() <= r))
+        ok = (scores > 0) & inb & ~near.any(dim=1)
+        flat = torch.where(ok, kpts[:, 1].to(torch.int64) * cols + kpts[:, 0].to(torch.int64), 0)
+        owner = torch.full((rows * cols,), k, dtype=torch.int64, device=scores.device)
+        owner.scatter_reduce_(0, flat, torch.where(ok, torch.arange(k, device=scores.device), k), reduce="amin")
+        owned = owner < k
+        owner = torch.clamp(owner, max=k - 1)
+        score_map = torch.where(owned, scores[owner], torch.zeros((), dtype=scores.dtype, device=scores.device))
+        return score_map.view(rows, cols), owner
 
 
 def directly_select_features(
@@ -162,19 +165,21 @@ def detect_with_descriptors(heatmap: torch.Tensor, desc_map: torch.Tensor, exist
     for every valid (existing and new) feature.  Returns (Features,
     descriptors ``[capacity, D]``)."""
     feats = select_features_from_heatmap(heatmap, existing, opts)
-    desc = sample_descriptor_grid(desc_map, feats.uv)
-    return feats, desc * feats.valid[:, None].to(desc.dtype)
+    with trace.span("kernels.nn_sample"):
+        desc = sample_descriptor_grid(desc_map, feats.uv)
+        return feats, desc * feats.valid[:, None].to(desc.dtype)
 
 
 def postprocess(heatmap: torch.Tensor, desc_map: torch.Tensor, existing: Features,
                 opts: NNDetectorOptions) -> Tuple[Features, torch.Tensor]:
     """Features and descriptors of one frame from its heatmap ``[H, W]`` and
     stride-8 descriptor map ``[H/8, W/8, D]``, by ``opts.model_type``."""
-    if opts.model_type in NMS_TYPES:
-        kpts, scores, descs = nms_head(heatmap, desc_map, min_response=opts.min_response)
-        rows, cols = heatmap.shape
-        return directly_select_features(kpts, scores, descs, existing, opts, rows, cols)
-    return detect_with_descriptors(heatmap, desc_map, existing, opts)
+    with trace.span("frontend.nn_postprocess"):
+        if opts.model_type in NMS_TYPES:
+            kpts, scores, descs = nms_head(heatmap, desc_map, min_response=opts.min_response)
+            rows, cols = heatmap.shape
+            return directly_select_features(kpts, scores, descs, existing, opts, rows, cols)
+        return detect_with_descriptors(heatmap, desc_map, existing, opts)
 
 
 class NNFeaturePointDetector:
@@ -204,13 +209,14 @@ class NNFeaturePointDetector:
         else:
             model, self.preprocess, channels = Disk(dtype=self.dtype), preprocess_gray_rgb, 3
             path, to_state = W.DISK_SYNTH, disk_state_from_flax
-        if params is None:
-            params = W.load_params_npz(path)
-        model.load_state_dict(to_state(params))
-        self.model = model.to(self.device).eval()
-        with torch.no_grad():
-            self.model(torch.zeros((1, channels, self.opts.max_image_rows, self.opts.max_image_cols),
-                                   device=self.device))
+        with trace.setup_span("setup.nn_initialize"):
+            if params is None:
+                params = W.load_params_npz(path)
+            model.load_state_dict(to_state(params))
+            self.model = model.to(self.device).eval()
+            with torch.no_grad():
+                self.model(torch.zeros((1, channels, self.opts.max_image_rows, self.opts.max_image_cols),
+                                       device=self.device))
         return True
 
     def maps(self, image_u8) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -220,18 +226,21 @@ class NNFeaturePointDetector:
         if self.model is None:
             raise RuntimeError("NNFeaturePointDetector used before initialize()")
         image = as_tensor(image_u8, self.device)
-        with torch.no_grad():
-            heat, desc = self.model(self.preprocess(image))
+        x = self.preprocess(image)
+        with trace.span("models.forward"), torch.no_grad():
+            heat, desc = self.model(x)
         desc_map = desc[0]
         if desc_map.shape[0] == image.shape[0]:
-            desc_map = F.avg_pool2d(desc_map.permute(2, 0, 1)[None], STRIDE)[0].permute(1, 2, 0)
+            with trace.span("frontend.nn_pool"):
+                desc_map = F.avg_pool2d(desc_map.permute(2, 0, 1)[None], STRIDE)[0].permute(1, 2, 0)
         return heat[0], desc_map
 
     def detect(self, image_u8, existing: Optional[Features] = None) -> Tuple[Features, torch.Tensor]:
         """DetectGoodFeaturesWithDescriptor: (Features ``[capacity]``,
         descriptors ``[capacity, D]``) of one ``[H, W]`` uint8 image, the
         new features appended after ``existing``."""
-        heatmap, desc_map = self.maps(image_u8)
-        if existing is None:
-            existing = Features.empty(self.opts.max_number_of_detected_features, device=self.device)
-        return postprocess(heatmap, desc_map, existing, self.opts)
+        with trace.span("frontend.nn_detect"):
+            heatmap, desc_map = self.maps(image_u8)
+            if existing is None:
+                existing = Features.empty(self.opts.max_number_of_detected_features, device=self.device)
+            return postprocess(heatmap, desc_map, existing, self.opts)

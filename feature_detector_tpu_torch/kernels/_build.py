@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+from ..utils import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fd_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -84,7 +86,8 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path = build([name])[name]["path"]
-        lib = ctypes.CDLL(path)
+        with trace.setup_span("setup.kernel_load"):
+            path = build([name])[name]["path"]
+            lib = ctypes.CDLL(path)
         _loaded[name] = lib
     return lib

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core.config import BriefOptions
+from ..utils import trace
 from .brief_pattern import BRIEF_PATTERN
 
 K_ZERO_FLOAT = 1e-10
@@ -268,8 +269,9 @@ def brief_compute(
     """Steered-BRIEF dispatch on ``opts.method``: "mxu" (the default,
     integer centres and binned angles) or "gather" (continuous angle,
     bilinear reads)."""
-    if opts.method == "mxu":
-        return brief_compute_mxu(image, uv, valid, opts)
-    if opts.method == "gather":
-        return brief_compute_gather(image, uv, valid, opts)
+    with trace.span("frontend.describe"):
+        if opts.method == "mxu":
+            return brief_compute_mxu(image, uv, valid, opts)
+        if opts.method == "gather":
+            return brief_compute_gather(image, uv, valid, opts)
     raise ValueError(f"unknown BRIEF method: {opts.method!r}")

@@ -23,7 +23,8 @@ one to the other.  The kernels read their operands as the strided views
 they are (transposed, broadcast, up to ``MAX_BATCH_DIMS`` batch axes after
 ``batch_layout`` merges them), so a call copies nothing and launches one
 kernel.  ``fixed_contract.launches`` counts K4's launches (both
-entry points), ``fixed_lu_solve.launches`` K5's.
+entry points), ``fixed_lu_solve.launches`` K5's (tests, ``chip_smoke.py``
+and ``trace.summary()`` read them).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import Callable, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from . import _build
 
 SERIAL_MAX_K = 16  # kSerialMaxK of csrc/fixed_order.cu: one serial sum an output at and below it
@@ -302,3 +304,5 @@ def fixed_lu_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 fixed_contract.launches = 0
 fixed_lu_solve.launches = 0
+trace.count_launches("fixed_contract", fixed_contract)
+trace.count_launches("fixed_lu_solve", fixed_lu_solve)

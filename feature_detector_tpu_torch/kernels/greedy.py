@@ -8,7 +8,8 @@ one pick chain per frame.
 
 A CUDA tensor launches the kernels; a CPU tensor takes the plain version
 ``detect.greedy_select_ref``.  Nothing else: there is no fallback from one to
-the other.  ``greedy_select.launches`` counts kernel launches.
+the other.  ``greedy_select.launches`` counts kernel launches (tests,
+``chip_smoke.py`` and ``trace.summary()`` read it).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from . import _build
 from .detect import greedy_select_ref
 
@@ -88,11 +90,13 @@ def greedy_select(cand: torch.Tensor, max_picks: int, n_stop, radius: int):
     entries <= 0 are never picked.  On the card a call is two kernel
     launches and a frame must hold fewer than 2^32 - 1 pixels.
     """
-    if cand.device.type == "cuda":
-        return _launch(cand, max_picks, n_stop, radius)
-    if cand.device.type == "cpu":
-        return greedy_select_ref(cand, max_picks, n_stop, radius)
+    with trace.span("kernels.greedy_select"):
+        if cand.device.type == "cuda":
+            return _launch(cand, max_picks, n_stop, radius)
+        if cand.device.type == "cpu":
+            return greedy_select_ref(cand, max_picks, n_stop, radius)
     raise ValueError(f"greedy_select: unsupported device {cand.device}")
 
 
 greedy_select.launches = 0
+trace.count_launches("greedy_select", greedy_select)

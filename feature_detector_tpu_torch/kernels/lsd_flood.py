@@ -23,7 +23,8 @@ A CUDA tensor launches the kernel, one launch per ``SWEEPS_PER_LAUNCH``
 sweeps over 32x32 tiles (``FLOOD_TILE``) that hold a halo as wide as their
 sweep count; tiles without a valid pixel are skipped.  A CPU tensor takes the
 plain version ``running_sweeps_ref``.  There is no fallback from one to the
-other.  ``propagate_running.launches`` counts kernel launches.
+other.  ``propagate_running.launches`` counts kernel launches (tests,
+``chip_smoke.py`` and ``trace.summary()`` read it).
 
 Float32 throughout, as in the JAX package: pi, 2 pi and ``tol`` are rounded
 to float32 before any comparison, so a difference of exactly float32(pi) is
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
 from . import _build
 
 SWEEPS_PER_LAUNCH = 16  # K of csrc/lsd_flood.cu
@@ -195,3 +197,4 @@ def propagate_running(norm: torch.Tensor, angle: torch.Tensor, valid: torch.Tens
 
 
 propagate_running.launches = 0
+trace.count_launches("propagate_running", propagate_running)

@@ -19,6 +19,7 @@ import torch
 
 from ..core.types import Matches
 from ..kernels.nn_ops import l2_normalise
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,33 +51,34 @@ def match_float(
     """
     if opts.metric not in ("cosine", "l2"):
         raise ValueError(f"unknown metric: {opts.metric}")
-    a = l2_normalise(desc_a.to(torch.float32), dim=-1)
-    b = l2_normalise(desc_b.to(torch.float32), dim=-1)
-    sim = (a.double() @ b.double().T).to(torch.float32)
-    neg_inf = torch.tensor(float("-inf"), device=sim.device)
-    sim = torch.where(valid_a[:, None] & valid_b[None, :], sim, neg_inf)
+    with trace.span("match.float"):
+        a = l2_normalise(desc_a.to(torch.float32), dim=-1)
+        b = l2_normalise(desc_b.to(torch.float32), dim=-1)
+        sim = (a.double() @ b.double().T).to(torch.float32)
+        neg_inf = torch.tensor(float("-inf"), device=sim.device)
+        sim = torch.where(valid_a[:, None] & valid_b[None, :], sim, neg_inf)
 
-    na, nb = sim.shape
-    best = sim.amax(dim=1)
-    best_j = torch.argmax(sim, dim=1)
-    is_best = torch.arange(nb, device=sim.device)[None, :] == best_j[:, None]
-    second = torch.where(is_best, neg_inf, sim).amax(dim=1)
+        na, nb = sim.shape
+        best = sim.amax(dim=1)
+        best_j = torch.argmax(sim, dim=1)
+        is_best = torch.arange(nb, device=sim.device)[None, :] == best_j[:, None]
+        second = torch.where(is_best, neg_inf, sim).amax(dim=1)
 
-    ok = valid_a & torch.isfinite(best)
-    dist = _l2_of_cos(best)
-    if opts.metric == "cosine":
-        ok &= best >= opts.min_similarity
-    else:
-        ok &= dist <= opts.max_distance
-    if opts.ratio < 1.0:
-        d2 = _l2_of_cos(second)
-        ok &= dist <= opts.ratio * torch.where(torch.isfinite(d2), d2, torch.inf)
-    if opts.cross_check:
-        best_i = torch.argmax(sim, dim=0)
-        ok &= best_i[best_j] == torch.arange(na, device=sim.device)
+        ok = valid_a & torch.isfinite(best)
+        dist = _l2_of_cos(best)
+        if opts.metric == "cosine":
+            ok &= best >= opts.min_similarity
+        else:
+            ok &= dist <= opts.max_distance
+        if opts.ratio < 1.0:
+            d2 = _l2_of_cos(second)
+            ok &= dist <= opts.ratio * torch.where(torch.isfinite(d2), d2, torch.inf)
+        if opts.cross_check:
+            best_i = torch.argmax(sim, dim=0)
+            ok &= best_i[best_j] == torch.arange(na, device=sim.device)
 
-    return Matches(
-        index=torch.where(ok, best_j, -1).to(torch.int32),
-        distance=torch.where(ok, dist, torch.inf).to(torch.float32),
-        valid=ok,
-    )
+        return Matches(
+            index=torch.where(ok, best_j, -1).to(torch.int32),
+            distance=torch.where(ok, dist, torch.inf).to(torch.float32),
+            valid=ok,
+        )

@@ -12,6 +12,7 @@ import torch
 
 from ..core.config import MatcherOptions
 from ..core.types import BIG, Matches
+from ..utils import trace
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -61,22 +62,23 @@ def match_hamming(
     """Match descriptor set A against B: per A-slot the nearest B (first
     index wins a tie), gated by ``max_distance``, the ratio test against the
     second best when ``ratio < 1`` and the mutual cross-check."""
-    d = hamming_distance_matrix(words_a, words_b, valid_a, valid_b)
-    na, nb = d.shape[-2:]
-    best, best_j = _first_index_of_min(d, -1)
-    is_best = torch.arange(nb, dtype=torch.int32, device=d.device) == best_j[..., None]
-    second = torch.where(is_best, torch.full_like(d, BIG), d).amin(dim=-1)
+    with trace.span("match.hamming"):
+        d = hamming_distance_matrix(words_a, words_b, valid_a, valid_b)
+        na, nb = d.shape[-2:]
+        best, best_j = _first_index_of_min(d, -1)
+        is_best = torch.arange(nb, dtype=torch.int32, device=d.device) == best_j[..., None]
+        second = torch.where(is_best, torch.full_like(d, BIG), d).amin(dim=-1)
 
-    ok = valid_a & (best <= opts.max_distance)
-    if opts.ratio < 1.0:
-        ok &= best.to(torch.float32) < opts.ratio * second.to(torch.float32)
-    if opts.cross_check:
-        _, best_i_for_b = _first_index_of_min(d, -2)
-        bi_of_bj = best_i_for_b.gather(-1, best_j.to(torch.int64))
-        ok &= bi_of_bj == torch.arange(na, dtype=torch.int32, device=d.device)
+        ok = valid_a & (best <= opts.max_distance)
+        if opts.ratio < 1.0:
+            ok &= best.to(torch.float32) < opts.ratio * second.to(torch.float32)
+        if opts.cross_check:
+            _, best_i_for_b = _first_index_of_min(d, -2)
+            bi_of_bj = best_i_for_b.gather(-1, best_j.to(torch.int64))
+            ok &= bi_of_bj == torch.arange(na, dtype=torch.int32, device=d.device)
 
-    return Matches(
-        index=torch.where(ok, best_j, torch.full_like(best_j, -1)),
-        distance=torch.where(ok, best, torch.full_like(best, BIG)),
-        valid=ok,
-    )
+        return Matches(
+            index=torch.where(ok, best_j, torch.full_like(best_j, -1)),
+            distance=torch.where(ok, best, torch.full_like(best, BIG)),
+            valid=ok,
+        )

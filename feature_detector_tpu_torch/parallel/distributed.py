@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.device import DeviceLike, resolve_device
+from ..utils import trace
 from .mesh import backend_for, make_mesh
 
 
@@ -45,15 +46,16 @@ def initialize(
         return False
     if dist.is_initialized():
         raise RuntimeError("initialize: this process already belongs to a process group")
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        if local_device_ids:
-            index = int(local_device_ids[0])
-        else:
-            index = int(os.environ.get("LOCAL_RANK", process_id % torch.cuda.device_count()))
-        torch.cuda.set_device(index)
-    dist.init_process_group(backend_for(dev.type), init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id)
+    with trace.setup_span("setup.join"):
+        dev = resolve_device(device)
+        if dev.type == "cuda":
+            if local_device_ids:
+                index = int(local_device_ids[0])
+            else:
+                index = int(os.environ.get("LOCAL_RANK", process_id % torch.cuda.device_count()))
+            torch.cuda.set_device(index)
+        dist.init_process_group(backend_for(dev.type), init_method=f"tcp://{coordinator_address}",
+                                world_size=num_processes, rank=process_id)
     return True
 
 

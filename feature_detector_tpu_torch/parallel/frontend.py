@@ -29,6 +29,7 @@ from ..frontend.detector import detect_good_features_batch
 from ..kernels import detect as K
 from ..kernels.brief import brief_compute
 from ..match.hamming import match_hamming
+from ..utils import trace
 from .halo import exchange_halo
 from .mesh import axis_index, axis_size, gather_leading, mesh_device, shard_leading
 
@@ -123,15 +124,17 @@ def make_two_frame_matcher(
     """
 
     def run(images_a, images_b) -> Tuple[Features, Features, Matches]:
-        dev = mesh_device(mesh)
-        la = shard_leading(as_tensor(images_a, dev), mesh, data_axis)
-        lb = shard_leading(as_tensor(images_b, dev), mesh, data_axis)
-        fa = detect_good_features_batch(la, kind, needed_num, opts, sub)
-        fb = detect_good_features_batch(lb, kind, needed_num, opts, sub)
-        wa, va = brief_compute(la, fa.uv, fa.valid, brief_opts)
-        wb, vb = brief_compute(lb, fb.uv, fb.valid, brief_opts)
-        m = match_hamming(wa, va, wb, vb, matcher_opts)
-        return (_gather_features(fa, mesh, data_axis), _gather_features(fb, mesh, data_axis),
-                Matches(*(gather_leading(x, mesh, data_axis) for x in (m.index, m.distance, m.valid))))
+        with trace.span("parallel.two_frame", device=True):
+            with trace.span("parallel.local", device=True):
+                dev = mesh_device(mesh)
+                la = shard_leading(as_tensor(images_a, dev), mesh, data_axis)
+                lb = shard_leading(as_tensor(images_b, dev), mesh, data_axis)
+                fa = detect_good_features_batch(la, kind, needed_num, opts, sub)
+                fb = detect_good_features_batch(lb, kind, needed_num, opts, sub)
+                wa, va = brief_compute(la, fa.uv, fa.valid, brief_opts)
+                wb, vb = brief_compute(lb, fb.uv, fb.valid, brief_opts)
+                m = match_hamming(wa, va, wb, vb, matcher_opts)
+            return (_gather_features(fa, mesh, data_axis), _gather_features(fb, mesh, data_axis),
+                    Matches(*(gather_leading(x, mesh, data_axis) for x in (m.index, m.distance, m.valid))))
 
     return run

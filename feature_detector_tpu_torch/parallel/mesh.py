@@ -27,6 +27,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..core.device import DeviceLike, resolve_device
+from ..utils import trace
 
 
 def backend_for(device_type: str) -> str:
@@ -121,10 +122,11 @@ def shard_leading(x: torch.Tensor, mesh: DeviceMesh, axis: str = "data", pad_val
 def gather_leading(x_local: torch.Tensor, mesh: DeviceMesh, axis: str = "data") -> torch.Tensor:
     """Every rank's block of the leading axis, in rank order, on every rank
     (an all-gather; the blocks must have equal shapes)."""
-    n = axis_size(mesh, axis)
-    x = x_local.to(torch.uint8) if x_local.dtype == torch.bool else x_local
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=axis_group(mesh, axis))
-    out = torch.cat(parts)
-    return out.to(torch.bool) if x_local.dtype == torch.bool else out
+    with trace.span("parallel.gather"):
+        n = axis_size(mesh, axis)
+        x = x_local.to(torch.uint8) if x_local.dtype == torch.bool else x_local
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=axis_group(mesh, axis))
+        out = torch.cat(parts)
+        return out.to(torch.bool) if x_local.dtype == torch.bool else out

@@ -1,1 +1,1 @@
-"""Utilities of the PyTorch/CUDA port: logging, timers, checkpoints, numeric checks, recovery."""
+"""Utilities of the PyTorch/CUDA port: logging, timers, the tracer, checkpoints, numeric checks, recovery."""

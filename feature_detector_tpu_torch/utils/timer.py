@@ -3,8 +3,7 @@
 Counterpart of ``feature_detector_tpu/utils/timer.py``.  CUDA calls return
 before the card has finished, so ``time_jitted`` times the card with CUDA
 events between ``torch.cuda.synchronize`` calls; on the CPU it reads
-``time.perf_counter``.  ``trace_annotation`` names a range in
-``torch.profiler`` traces.
+``time.perf_counter``.  Named spans are ``utils/trace.py``'s.
 """
 
 from __future__ import annotations
@@ -85,6 +84,3 @@ def time_jitted(fn: Callable, *args, iters: int = 10, warmup: int = 1,
     torch.cuda.synchronize(dev)
     return first_ms, start.elapsed_time(end) / iters
 
-
-# A named range in ``torch.profiler`` traces; nearly free when no trace runs.
-trace_annotation = torch.profiler.record_function
