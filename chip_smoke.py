@@ -13,10 +13,11 @@ bfloat16, default ``NNDetectorOptions``: 240 features, r = 15) on 8 scenes
 at 640x480 with float matching, and the fused chunked visual odometry
 (``run_visual_odometry_chunked``, default options) on the 120-frame bench
 sequence at 240x320, all on the card.  It builds every CUDA kernel of these
-paths from the sources in the checkout (greedy selection, the LSD region
-flood, and the chunk solver's fixed-order contraction K4 and LU solve K5),
-holds each against its plain PyTorch version on the card (greedy selection
-also on the VO's own candidate maps, K4 and K5 on the VO's largest calls and
+paths from the sources in the checkout (FAST K6, greedy selection, the LSD
+region flood, and the chunk solver's fixed-order contraction K4 and LU solve
+K5), holds each against its plain PyTorch version on the card (FAST on the
+main path's frames and the incremental frame with its mask, both maps; greedy
+selection also on the VO's own candidate maps, K4 and K5 on the VO's largest calls and
 on one call of every distinct shape and stride signature of the VO run,
 under torch.profiler: one kernel a call, no copy; their summed device time
 over a profiled VO run), shows through the launch
@@ -93,6 +94,8 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 SOURCE = "feature_detector_tpu_torch/kernels/csrc/greedy.cu"
+FAST_SOURCE = "feature_detector_tpu_torch/kernels/csrc/fast.cu"
+FAST_KERNELS = ("fast_kernel",)
 LSD_SOURCE = "feature_detector_tpu_torch/kernels/csrc/lsd_flood.cu"
 FIXED_SOURCE = "feature_detector_tpu_torch/kernels/csrc/fixed_order.cu"
 FIXED_REPLACES = ("none (added for the chunk solver: batch-invariant arithmetic, "
@@ -114,6 +117,12 @@ NN_F32_HEAT_ATOL, NN_F32_DESC_ATOL = 1e-4, 1e-3  # float32 forward, card (no TF3
 NN_BF16_ATOL = {"superpoint": (2e-2, 6e-3), "disk": (6e-2, 3e-2)}
 NN_SELF_DIST = 1e-3  # L2 distance of a self-match: cosine 1 within float32 rounding
 GREEDY_KERNELS = ("tile_keys_kernel", "pick_kernel")
+
+
+def fast_bound_ms(pixels: int, want_response: bool) -> float:
+    """Least time for FAST: read each uint8 pixel once and write one float32
+    map (two with the response map), in bytes at the HBM peak."""
+    return 1e3 * pixels * (1 + 4 * (1 + want_response)) / PEAK_BYTES_PER_S
 NN_TOP_KERNELS = 6  # kernels listed by device time per detect call
 # The VO bench sequence (bench.py:275-276): 120 frames at 240x320, 900 landmarks, seed 7.
 VO_FRAMES, VO_LANDMARKS, VO_SEED = 120, 900, 7
@@ -2826,7 +2835,7 @@ def single_card_main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
 
-    from feature_detector_tpu_torch.core.config import BriefOptions, DetectorOptions, MatcherOptions
+    from feature_detector_tpu_torch.core.config import BriefOptions, DetectorOptions, FastOptions, MatcherOptions
     from feature_detector_tpu_torch.core.types import Features
     from feature_detector_tpu_torch.frontend.descriptor import compute_descriptors
     from feature_detector_tpu_torch.frontend.detector import detect_good_features, detect_good_features_batch
@@ -2837,6 +2846,7 @@ def single_card_main() -> int:
         greedy_select_ref,
         make_suppression_mask,
     )
+    from feature_detector_tpu_torch.kernels.fast import fast_maps
     from feature_detector_tpu_torch.kernels.greedy import greedy_select
     from feature_detector_tpu_torch.match.hamming import match_hamming
 
@@ -2880,10 +2890,12 @@ def single_card_main() -> int:
         return fa, fb, da, db, match_hamming(da.words, da.valid, db.words, db.valid, mopts)
 
     greedy_select.launches = 0
+    fast_maps.launches = 0
     fa, fb, da, db, m = pipeline()
     torch.cuda.synchronize()
-    batch_launches = greedy_select.launches
+    batch_launches, fast_launches = greedy_select.launches, fast_maps.launches
     check(batch_launches == 4, f"main path launched the greedy kernels {batch_launches} times, not 2 x 2")
+    check(fast_launches == 2, f"main path launched the FAST kernel {fast_launches} times, not 2")
     check(fa.uv.shape == (BATCH, PICKS, 2) and da.words.shape == (BATCH, PICKS, 8), "output shapes")
     check(bool(torch.isfinite(fa.uv).all() and torch.isfinite(fa.response).all()), "finite features")
     kpts = fa.count.float().mean().item()
@@ -2891,7 +2903,7 @@ def single_card_main() -> int:
     self_m = match_hamming(da.words, da.valid, da.words, da.valid, mopts)
     check(bool(torch.equal(self_m.valid, da.valid)), "self-match: every describable feature matches")
     check(bool((self_m.distance[da.valid] == 0).all()), "self-match distance 0")
-    emit("main_path", batch=BATCH, rows=ROWS, cols=COLS, greedy_launches=batch_launches,
+    emit("main_path", batch=BATCH, rows=ROWS, cols=COLS, greedy_launches=batch_launches, fast_launches=fast_launches,
          keypoints_per_frame=kpts, describable_per_frame=da.count.float().mean().item(),
          matches_per_pair=m.count.float().mean().item(),
          self_matches=int(self_m.count.sum()), describable=int(da.count.sum()))
@@ -2924,10 +2936,13 @@ def single_card_main() -> int:
     existing = Features(uv=fa.uv[0] * keep[:, None], response=fa.response[0] * keep, valid=fa.valid[0] & keep)
     frame1 = jb[0]
     greedy_select.launches = 0
+    fast_maps.launches = 0
     inc = detect_good_features(frame1, existing, "fast", PICKS, opts)
     torch.cuda.synchronize()
     single_launches = greedy_select.launches
     check(single_launches == 2, f"incremental path launched the greedy kernels {single_launches} times, not 2")
+    inc_fast_launches = fast_maps.launches
+    check(inc_fast_launches == 1, f"incremental path launched the FAST kernel {inc_fast_launches} times, not 1")
     check(bool(torch.equal(inc.uv[:n_half], existing.uv[:n_half]) and inc.valid[:n_half].all()), "existing prefix kept")
     n_total = int(inc.count)
     new_uv = inc.uv[n_half:n_total].cpu().numpy()
@@ -2937,13 +2952,32 @@ def single_card_main() -> int:
     cpu_inc = detect_good_features(frame1.cpu(), existing.to("cpu"), "fast", PICKS, opts)
     check(all(torch.equal(getattr(inc, k).cpu(), getattr(cpu_inc, k)) for k in ("uv", "response", "valid")),
           "incremental result differs from the CPU run")
-    emit("incremental_path", existing=n_half, total=n_total, greedy_launches=single_launches)
+    emit("incremental_path", existing=n_half, total=n_total, greedy_launches=single_launches,
+         fast_launches=inc_fast_launches)
 
-    # Kernel against plain on the paths' own candidate maps (not counted).
+    # Kernels against plain on the paths' own inputs and candidate maps
+    # (not counted): K6 on the main path's frames (no mask) and on the
+    # incremental frame with its suppression mask, both maps, one launch a
+    # call; then K1 on the plain chain's candidate maps.
+    sub, thr = FastOptions(), opts.min_valid_response
     ones = torch.ones((ROWS, COLS), dtype=torch.int32, device=dev)
-    cand_batch = fast_candidates(fast_response(ja, ones), opts.min_valid_response)
+    resp_batch = fast_response(ja, ones, sub)
+    cand_batch = fast_candidates(resp_batch, thr)
     mask1 = make_suppression_mask((ROWS, COLS), existing.uv, existing.valid, RADIUS)
-    cand_one = fast_candidates(fast_response(frame1, mask1), opts.min_valid_response)
+    resp_one = fast_response(frame1, mask1, sub)
+    cand_one = fast_candidates(resp_one, thr)
+    fast_maps.launches = 0
+    k6_b = fast_maps(ja, None, sub, thr, True)
+    k6_b_cand_only = fast_maps(ja, None, sub, thr, False)
+    k6_1 = fast_maps(frame1, mask1, sub, thr, True)
+    torch.cuda.synchronize()
+    check(fast_maps.launches == 3, f"three fast_maps calls made {fast_maps.launches} launches")
+    check(k6_b_cand_only[1] is None, "fast_maps wrote a response map that was not asked for")
+    for (got_c, got_r), want_c, want_r, what in ((k6_b, cand_batch, resp_batch, "the main path's frames"),
+                                                 (k6_1, cand_one, resp_one, "the incremental frame")):
+        check(torch.equal(got_c, want_c) and torch.equal(got_r, want_r), f"K6 != plain chain on {what}")
+    check(torch.equal(k6_b_cand_only[0], cand_batch), "K6 (candidate map only) != plain chain on the main path")
+    k6_err = max_abs_err(torch, (*k6_b, *k6_1), (cand_batch, resp_batch, cand_one, resp_one))
     stop_one = torch.tensor([PICKS - n_half], dtype=torch.int32, device=dev)
     got_b = greedy_select(cand_batch, PICKS, PICKS, RADIUS)
     want_b = greedy_select_ref(cand_batch, PICKS, PICKS, RADIUS)
@@ -2974,6 +3008,21 @@ def single_card_main() -> int:
     }
     times["greedy_device_ms_b64"] = device_ms(torch, lambda: greedy_select(cand_batch, PICKS, PICKS, RADIUS), GREEDY_KERNELS, 10)
     times["greedy_device_ms_b1"] = device_ms(torch, lambda: greedy_select(cand_one, PICKS, stop_one, RADIUS), GREEDY_KERNELS, 20)
+    def fast_b64():
+        return fast_maps(ja, None, sub, thr, False)
+
+    def fast_b1():
+        return fast_maps(frame1, mask1, sub, thr, False)
+
+    times.update({
+        "fast_ms_b64": cuda_ms(torch, fast_b64, 50),
+        "fast_device_ms_b64": device_ms(torch, fast_b64, FAST_KERNELS, 10),
+        "fast_ms_b64_with_response": cuda_ms(torch, lambda: fast_maps(ja, None, sub, thr, True), 50),
+        "fast_plain_ms_b64": cuda_ms(torch, lambda: fast_candidates(fast_response(ja, ones, sub), thr), 2),
+        "fast_ms_b1": cuda_ms(torch, fast_b1, 50),
+        "fast_device_ms_b1": device_ms(torch, fast_b1, FAST_KERNELS, 20),
+        "fast_plain_ms_b1": cuda_ms(torch, lambda: fast_candidates(fast_response(frame1, mask1, sub), thr), 5),
+    })
     detect_ms = cuda_ms(torch, lambda: detect_good_features_batch(ja, "fast", PICKS, opts), 10)
     describe_ms = cuda_ms(torch, lambda: compute_descriptors(ja, fa, bopts), 10)
     match_ms = cuda_ms(torch, lambda: match_hamming(da.words, da.valid, db.words, db.valid, mopts), 10)
@@ -3029,6 +3078,16 @@ def single_card_main() -> int:
         lsd_kernel,
         {**k4, "multi_path": {"launches": multi_fixed["contract"], "path": "the VO over a mesh of one"}},
         {**k5, "multi_path": {"launches": multi_fixed["lu_solve"], "path": "the VO over a mesh of one"}},
+        {"name": "fast_maps (K6)", "route": "cuda", "source": FAST_SOURCE,
+         "replaces": "none: the JAX package's FAST is jnp ops (feature_detector_tpu/kernels/detect.py:124)",
+         "launches": fast_launches, "max_abs_err": k6_err,
+         "ms": times["fast_ms_b64"], "device_ms": times["fast_device_ms_b64"], "plain_ms": times["fast_plain_ms_b64"],
+         "bound_ms": fast_bound_ms(ja.numel(), False), "bound_by": "bytes", "library_ms": None,
+         "with_response": {"ms": times["fast_ms_b64_with_response"], "bound_ms": fast_bound_ms(ja.numel(), True)},
+         "single_frame": {"launches": inc_fast_launches, "ms": times["fast_ms_b1"],
+                          "device_ms": times["fast_device_ms_b1"], "plain_ms": times["fast_plain_ms_b1"],
+                          "bound_ms": fast_bound_ms(frame1.numel(), False),
+                          "path": "detect_good_features on one frame with the suppression mask"}},
     ]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

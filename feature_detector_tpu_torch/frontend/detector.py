@@ -3,9 +3,9 @@
 Counterpart of ``feature_detector_tpu/frontend/detector.py``: the same entry
 points, arguments and fixed-capacity outputs.  Existing features seed the
 suppression mask and new detections are appended after them (incremental
-re-detection, quirk Q9).  The greedy selection goes through
-``kernels.greedy.greedy_select``: the CUDA kernel for tensors on the card,
-its plain version for CPU tensors.
+re-detection, quirk Q9).  FAST goes through ``kernels.fast.fast_maps`` and
+the greedy selection through ``kernels.greedy.greedy_select``: the CUDA
+kernels for tensors on the card, their plain versions for CPU tensors.
 
 Entry points run on ``cuda`` unless handed CPU tensors or ``device="cpu"``.
 """
@@ -18,6 +18,7 @@ from ..core.config import DetectorOptions, FastOptions, HarrisOptions, ShiTomasi
 from ..core.device import DeviceLike, as_tensor
 from ..core.types import Features
 from ..kernels import detect as K
+from ..kernels.fast import fast_maps
 from ..kernels.greedy import greedy_select
 from ..utils import trace
 
@@ -30,16 +31,19 @@ def _default_sub(kind: str):
 
 
 def _candidate_map(image, mask, kind: str, opts, sub):
-    """Returns (candidate map for selection, raw response map for subpixel)."""
+    """Returns (candidate map for selection, raw response map for subpixel;
+    FAST gives None for the latter unless ``opts.subpixel``).  ``mask`` None
+    gates no pixel."""
+    if kind == "fast":
+        return fast_maps(image, mask, sub, opts.min_valid_response, want_response=opts.subpixel)
+    if mask is None:
+        mask = torch.ones(image.shape[-2:], dtype=torch.int32, device=image.device)
     if kind == "harris":
         resp = K.harris_response(image, mask, opts, sub)
         return K.nms4(resp, opts.min_valid_response, sub.half_patch_size + 1), resp
     if kind == "shi_tomasi":
         resp = K.shi_tomasi_response(image, mask, opts, sub)
         return K.nms4(resp, opts.min_valid_response, sub.half_patch_size + 1), resp
-    if kind == "fast":
-        resp = K.fast_response(image, mask, sub)
-        return K.fast_candidates(resp, opts.min_valid_response), resp
     raise ValueError(f"unknown detector kind: {kind}")
 
 
@@ -85,7 +89,8 @@ def detection_maps(image: torch.Tensor, existing: Features, kind: str, opts: Det
                    sub=None):
     """The maps ``detect_good_features`` computes before its greedy
     selection: (candidate map [H, W] f32, raw response for the subpixel
-    fit), with the existing features' squares suppressed."""
+    fit, None for FAST without the fit), with the existing features'
+    squares suppressed."""
     sub = _default_sub(kind) if sub is None else sub
     mask = K.make_suppression_mask(image.shape, existing.uv, existing.valid, opts.min_feature_distance)
     return _candidate_map(image, mask, kind, opts, sub)
@@ -125,9 +130,8 @@ def detect_good_features_batch(
     with trace.span("frontend.detect_batch"):
         images = as_tensor(images, device)
         capacity = opts.max_features
-        mask = torch.ones(images.shape[-2:], dtype=torch.int32, device=images.device)
         with trace.span(f"kernels.{kind}", device=True):
-            cand, raw_resp = _candidate_map(images, mask, kind, opts, sub)
+            cand, raw_resp = _candidate_map(images, None, kind, opts, sub)
         max_picks = max(1, min(needed_num, capacity))
         new_uv, new_resp, new_valid = greedy_select(cand, max_picks, needed_num, opts.min_feature_distance)
         if opts.subpixel:

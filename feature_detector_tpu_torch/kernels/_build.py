@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fd_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-KERNELS = ("greedy", "lsd_flood", "fixed_order")
+KERNELS = ("greedy", "lsd_flood", "fixed_order", "fast")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

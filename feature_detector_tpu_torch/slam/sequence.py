@@ -39,12 +39,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.config import BAOptions, BriefOptions, DetectorOptions, MatcherOptions
+from ..core.config import BAOptions, BriefOptions, DetectorOptions, FastOptions, MatcherOptions
 from ..core.device import DeviceLike, as_tensor
 from ..core.types import Features
 from ..frontend.detector import detect_good_features, detect_good_features_batch
 from ..kernels import detect as KD
 from ..kernels.brief import brief_compute
+from ..kernels.fast import fast_maps
 from ..match.hamming import _popcount32, match_hamming
 from ..parallel.mesh import mesh_device
 from ..utils.log import report_warn
@@ -762,13 +763,15 @@ _N_PEAKS = 4  # response peaks tried per carried feature
 
 def _response(img: torch.Tensor, kind: str, det_opts: DetectorOptions) -> torch.Tensor:
     """The gated response map of ``kind`` over the whole frame."""
+    if kind == "fast":
+        # K6 writes the candidate map too, unread here: one float32 map a
+        # frame, accepted rather than a second variant of the kernel.
+        return fast_maps(img, None, FastOptions(), det_opts.min_valid_response, want_response=True)[1]
     full = torch.ones(img.shape, dtype=torch.int32, device=img.device)
     if kind == "harris":
         return KD.harris_response(img, full, det_opts)
     if kind == "shi_tomasi":
         return KD.shi_tomasi_response(img, full, det_opts)
-    if kind == "fast":
-        return KD.fast_response(img, full)
     raise ValueError(f"unsupported detector kind {kind!r}; expected one of ['fast', 'harris', 'shi_tomasi']")
 
 

@@ -9,6 +9,8 @@ from feature_detector_tpu.core.config import DetectorOptions, HarrisOptions, Shi
 from feature_detector_tpu.kernels import detect as KJ
 from feature_detector_tpu_torch.core import config as TC
 from feature_detector_tpu_torch.kernels import detect as KT
+from feature_detector_tpu_torch.kernels.fast import fast_maps
+from tests.torch_fast_cases import FAST_CASES, fast_case
 from tests.torch_port_inputs import synth_stack
 
 SEEDS = (0, 1, 2)
@@ -44,6 +46,57 @@ def test_fast_arc_length_option(frames, n):
     want = np.asarray(KJ.fast_response(jnp.asarray(f), jnp.asarray(mask), KJ.FastOptions(n=n)))
     got = KT.fast_response(torch.from_numpy(f), torch.from_numpy(mask), TC.FastOptions(n=n)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("want_response", [False, True], ids=["cand", "cand_and_resp"])
+@pytest.mark.parametrize("case", sorted(FAST_CASES))
+def test_fast_maps_on_cpu_is_the_plain_chain(case, want_response):
+    image, mask, sub, thr = fast_case(case)
+    img = torch.from_numpy(image)
+    m = None if mask is None else torch.from_numpy(mask)
+    before = fast_maps.launches
+    cand, resp = fast_maps(img, m, sub, thr, want_response)
+    assert fast_maps.launches == before  # the CPU launches nothing
+    want_r = KT.fast_response(img, torch.ones(image.shape[-2:], dtype=torch.int32) if m is None else m, sub)
+    want_c = KT.fast_candidates(want_r, thr)
+    assert cand.dtype == torch.float32 and cand.shape == img.shape
+    assert torch.equal(cand, want_c)
+    if want_response:
+        assert torch.equal(resp, want_r)
+    else:
+        assert resp is None
+
+
+def test_fast_maps_cases_reach_every_gate():
+    """The shared cases hold candidates, responses below the threshold and
+    pixels that the mask turns off."""
+    for case in ("random", "ring_at_threshold", "scenes", "mask_hw"):
+        image, mask, sub, thr = fast_case(case)
+        cand, resp = fast_maps(torch.from_numpy(image), None, sub, thr, True)
+        assert bool((cand > 0).any()) and bool(((resp > 0) & (cand == 0)).any()), case
+        if mask is not None:
+            assert bool((resp[..., torch.from_numpy(mask) == 0] > 0).any()), case
+
+
+@pytest.mark.parametrize("bad", ["float32_image", "int32_image", "transposed_image", "mask_hw_too_wide",
+                                 "mask_of_another_batch", "int64_mask"])
+def test_fast_maps_rejects_bad_input(bad):
+    img = torch.zeros((3, 20, 24), dtype=torch.uint8)
+    mask = None
+    if bad == "float32_image":
+        img = img.float()
+    elif bad == "int32_image":
+        img = img.int()
+    elif bad == "transposed_image":
+        img = torch.zeros((3, 24, 20), dtype=torch.uint8).transpose(1, 2)
+    elif bad == "mask_hw_too_wide":
+        mask = torch.ones((20, 25), dtype=torch.int32)
+    elif bad == "mask_of_another_batch":
+        mask = torch.ones((2, 20, 24), dtype=torch.int32)
+    elif bad == "int64_mask":
+        mask = torch.ones((20, 24), dtype=torch.int64)
+    with pytest.raises((TypeError, ValueError)):
+        fast_maps(img, mask, TC.FastOptions(), 10.0, False)
 
 
 def test_nms4_exact_on_jax_response(frames):

@@ -12,20 +12,24 @@ import numpy as np
 import pytest
 import torch
 
-from feature_detector_tpu_torch.core.config import DetectorOptions, LineDetectorOptions, NNDetectorOptions, NNModelType
+from feature_detector_tpu_torch.core.config import (DetectorOptions, FastOptions, LineDetectorOptions, NNDetectorOptions,
+                                                    NNModelType)
 from feature_detector_tpu_torch.core.types import Features
 from feature_detector_tpu_torch.frontend.descriptor import compute_descriptors
 from feature_detector_tpu_torch.frontend.detector import detect_good_features, detect_good_features_batch
 from feature_detector_tpu_torch.frontend.line_detector import detect_good_lines, detect_good_lines_with_state
+from feature_detector_tpu_torch.kernels import detect as KD
 from feature_detector_tpu_torch.kernels import fixed_order as FO
 from feature_detector_tpu_torch.kernels import lsd_flood as LF
 from feature_detector_tpu_torch.kernels.detect import greedy_select_ref
+from feature_detector_tpu_torch.kernels.fast import fast_maps
 from feature_detector_tpu_torch.kernels.greedy import GREEDY_TILE, greedy_select
 from feature_detector_tpu_torch.kernels.lsd import fit_lines, propagate_labels_meanangle
 from feature_detector_tpu_torch.frontend.nn_detector import NNFeaturePointDetector, postprocess
 from feature_detector_tpu_torch.match.float_matcher import FloatMatcherOptions, match_float
 from feature_detector_tpu_torch.match.hamming import match_hamming
 from feature_detector_tpu_torch.models.synth_data import scene_uint8, synth_scene, tile_edge_ties
+from tests.torch_fast_cases import FAST_CARD_CASES, FAST_CASES, fast_case
 
 pytestmark = pytest.mark.gpu
 
@@ -112,6 +116,61 @@ def test_greedy_wrapper_rejects_bad_input(cuda):
         greedy_select(torch.zeros((2, 8, 8), device=cuda), 2, torch.zeros(3, dtype=torch.int32, device=cuda), 1)
 
 
+def _plain_fast(img, mask, sub, thr):
+    full = torch.ones(img.shape[-2:], dtype=torch.int32, device=img.device) if mask is None else mask
+    resp = KD.fast_response(img, full, sub)
+    return KD.fast_candidates(resp, thr), resp
+
+
+@pytest.mark.parametrize("case", sorted(FAST_CASES) + sorted(FAST_CARD_CASES))
+def test_fast_kernel_equals_plain_chain(cuda, case):
+    image, mask, sub, thr = fast_case(case)
+    img = torch.from_numpy(image).to(cuda)
+    m = None if mask is None else torch.from_numpy(mask).to(cuda)
+    before = fast_maps.launches
+    cand, resp = fast_maps(img, m, sub, thr, True)
+    assert fast_maps.launches == before + 1
+    cand_only, none = fast_maps(img, m, sub, thr, False)
+    torch.cuda.synchronize()
+    assert fast_maps.launches == before + 2 and none is None
+    want_c, want_r = _plain_fast(img, m, sub, thr)
+    assert torch.equal(resp, want_r) and torch.equal(cand, want_c) and torch.equal(cand_only, want_c)
+    assert torch.equal(img.cpu(), torch.from_numpy(image))  # the caller's image is untouched
+
+
+@pytest.mark.parametrize("cols", [752, 152, 151])
+def test_fast_kernel_unaligned_rows_equal_plain_chain(cuda, cols):
+    """Rows and frames off the 16-byte grid take the kernel's byte loads
+    (an image at an odd address, 152 columns) and float stores (151)."""
+    rng = np.random.default_rng(cols)
+    frames = torch.from_numpy(rng.choice(np.uint8([84, 85, 100, 100, 115, 116]), (3, 50, cols))).to(cuda)
+    for img in (frames, torch.empty(frames.numel() + 1, dtype=torch.uint8, device=cuda)[1:].view(frames.shape)):
+        img.copy_(frames)
+        cand, resp = fast_maps(img, None, FastOptions(), 9.0, True)
+        want_c, want_r = _plain_fast(img, None, FastOptions(), 9.0)
+        assert torch.equal(cand, want_c) and torch.equal(resp, want_r)
+        assert bool((cand > 0).any())
+
+
+def test_fast_wrapper_rejects_bad_input(cuda):
+    img = torch.zeros((2, 20, 24), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        fast_maps(img.float(), None, FastOptions(), 10.0, False)
+    with pytest.raises(ValueError):
+        fast_maps(torch.zeros((2, 24, 20), dtype=torch.uint8, device=cuda).transpose(1, 2), None, FastOptions(), 10.0,
+                  False)
+    with pytest.raises(ValueError):
+        fast_maps(img, torch.ones((20, 24), dtype=torch.int32), FastOptions(), 10.0, False)  # mask on the CPU
+    with pytest.raises(ValueError):
+        fast_maps(img, torch.ones((3, 20, 24), dtype=torch.int32, device=cuda), FastOptions(), 10.0, False)
+
+
+def _fast_launches(fn):
+    before = fast_maps.launches
+    out = fn()
+    return out, fast_maps.launches - before
+
+
 def test_slice_on_card_equals_cpu(cuda):
     frames = np.stack([scene_uint8(synth_scene(np.random.default_rng(s), 120, 160, rich_background=True)[0])
                        for s in (20, 21, 22)])
@@ -120,12 +179,14 @@ def test_slice_on_card_equals_cpu(cuda):
     for dev in ("cpu", cuda):
         a = torch.from_numpy(frames).to(dev)
         b = torch.roll(a, 3, dims=2)
-        fa = detect_good_features_batch(a, "fast", 40, opts)
-        fb = detect_good_features_batch(b, "fast", 40, opts)
+        fa, n_a = _fast_launches(lambda: detect_good_features_batch(a, "fast", 40, opts))
+        fb, n_b = _fast_launches(lambda: detect_good_features_batch(b, "fast", 40, opts))
         da, db = compute_descriptors(a, fa), compute_descriptors(b, fb)
         m = match_hamming(da.words, da.valid, db.words, db.valid)
-        inc = detect_good_features(b[0], Features(fa.uv[0], fa.response[0], fa.valid[0] & (torch.arange(64, device=dev) < 5)),
-                                   "fast", 40, opts)
+        existing = Features(fa.uv[0], fa.response[0], fa.valid[0] & (torch.arange(64, device=dev) < 5))
+        inc, n_inc = _fast_launches(lambda: detect_good_features(b[0], existing, "fast", 40, opts))
+        # One FAST launch a detect call on the card (csrc/fast.cu), none on the CPU.
+        assert [n_a, n_b, n_inc] == ([1, 1, 1] if dev == cuda else [0, 0, 0])
         out[str(dev)] = [t.cpu() for t in (fa.uv, fa.valid, fb.uv, da.words, da.valid, db.words, m.index,
                                            m.distance, m.valid, inc.uv, inc.valid)]
     for g, w in zip(out["cuda"], out["cpu"]):
@@ -635,30 +696,43 @@ def _harris_near_threshold(image, uv, thr, rel=1e-4):
     return np.abs(raw[y, x] - thr) <= rel * thr
 
 
-def test_scan_frontend_on_card_equals_cpu(cuda):
-    """Features, words, validity and carry links equal; a difference is
-    allowed only at a feature whose Harris response sits at the threshold,
-    and then the later frames (fed by the carry step) are not compared."""
+@pytest.mark.parametrize("kind", ["harris", "fast"])
+def test_scan_frontend_on_card_equals_cpu(cuda, kind):
+    """Features, words, validity and carry links equal.  Harris: a
+    difference is allowed only at a feature whose response sits at the
+    threshold, and then the later frames (fed by the carry step) are not
+    compared.  FAST: integer responses leave no such tie, so every frame is
+    equal, and each frame's maps come from K6 (frame 0 one launch, every
+    later frame two: the carry step's response map and the top-up)."""
     from feature_detector_tpu_torch.core.config import BriefOptions
     from feature_detector_tpu_torch.slam.sequence import scan_frontend
 
     seq = _vo_sequence(6)
-    det = DetectorOptions(min_feature_distance=10, min_valid_response=20.0, max_features=256, subpixel=True)
+    thr = {"harris": 20.0, "fast": 10.0}[kind]
+    det = DetectorOptions(min_feature_distance=10, min_valid_response=thr, max_features=256, subpixel=True)
     out = {}
     for dev in ("cpu", cuda):
-        f, w, v, l = scan_frontend(torch.from_numpy(seq.images).to(dev), "harris", 200, det, BriefOptions(upright=True))
+        fast_maps.launches = 0
+        f, w, v, l = scan_frontend(torch.from_numpy(seq.images).to(dev), kind, 200, det, BriefOptions(upright=True))
         out[str(dev)] = [t.cpu().numpy() for t in (f.uv, f.response, f.valid, w, v)] + [l.cpu().numpy()]
+        out[str(dev) + "_fast_launches"] = fast_maps.launches
     card, cpu = out["cuda"], out["cpu"]
     for fr in range(len(seq.images)):
         differ = ((card[0][fr] != cpu[0][fr]).any(-1) | (card[1][fr] != cpu[1][fr]) | (card[2][fr] != cpu[2][fr])
                   | (card[3][fr] != cpu[3][fr]).any(-1) | (card[4][fr] != cpu[4][fr]))
         if fr > 0:
             differ |= card[5][fr - 1] != cpu[5][fr - 1]
-        if differ.any():
+        if kind == "fast":
+            assert not differ.any(), f"frame {fr}"
+        elif differ.any():
             uv = np.concatenate([card[0][fr][differ], cpu[0][fr][differ]])
             assert _harris_near_threshold(seq.images[fr], uv, det.min_valid_response).all()
             break
     assert int(cpu[2].sum()) == 6 * 200
+    assert out["cpu_fast_launches"] == 0
+    assert out["cuda_fast_launches"] == (1 + 2 * 5 if kind == "fast" else 0)
+    if kind == "fast":
+        assert (cpu[5] >= 0).sum() > 0  # the carry step kept some features
 
 
 @pytest.fixture(scope="module")

@@ -163,7 +163,7 @@ def test_the_buffer_keeps_its_bound_and_counts_what_it_drops(monkeypatch):
 
 
 def test_summary_sums_by_name_and_reads_the_registered_launch_counters(monkeypatch):
-    from feature_detector_tpu_torch.kernels import fixed_order, greedy, lsd_flood
+    from feature_detector_tpu_torch.kernels import fast, fixed_order, greedy, lsd_flood
 
     monkeypatch.setattr(greedy.greedy_select, "launches", greedy.greedy_select.launches + 5)
     trace.enable()
@@ -178,7 +178,8 @@ def test_summary_sums_by_name_and_reads_the_registered_launch_counters(monkeypat
     assert out["launches"] == {"greedy_select": greedy.greedy_select.launches,
                                "propagate_running": lsd_flood.propagate_running.launches,
                                "fixed_contract": fixed_order.fixed_contract.launches,
-                               "fixed_lu_solve": fixed_order.fixed_lu_solve.launches}
+                               "fixed_lu_solve": fixed_order.fixed_lu_solve.launches,
+                               "fast_maps": fast.fast_maps.launches}
 
 
 def fast_step(imgs_a, imgs_b):
