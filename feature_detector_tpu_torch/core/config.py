@@ -24,6 +24,9 @@ identical defaults, so that a user of the reference can carry their configs over
 - ``NNDetectorOptions``    <- NNFeaturePointDetector::Options
     (reference: src/nn_feature_point_detector/nn_feature_point_detector.h:22-31)
 
+``SuperGlueOptions`` has no counterpart in either: the port's learned matcher
+(``match/superglue.py``) with the published defaults.
+
 All configs are hashable.  Shape-determining fields (``max_features`` etc.)
 are part of the config, as in the JAX package, so both produce the same
 fixed-capacity outputs.
@@ -189,6 +192,31 @@ class NNDetectorOptions:
     compute_descriptors: bool = False
 
     def replace(self, **kw) -> "NNDetectorOptions":
+        return dataclasses.replace(self, **kw)
+
+
+@_frozen
+class SuperGlueOptions:
+    """The learned matcher SuperGlue (Sarlin et al., CVPR 2020,
+    arXiv:1911.11763), with the ``default_config`` of the public
+    implementation (magicleap/SuperGluePretrainedNetwork,
+    ``models/superglue.py``).  New subsystem: the reference has no learned
+    matcher.
+
+    ``image_rows`` / ``image_cols`` are the frames' size, which normalises
+    the keypoints: ``(uv - [W/2, H/2]) / (0.7 max(W, H))``.
+    """
+
+    descriptor_dim: int = 256
+    keypoint_encoder: tuple = (32, 64, 128, 256)
+    gnn_layers: tuple = ("self", "cross") * 9
+    num_heads: int = 4
+    sinkhorn_iterations: int = 100
+    match_threshold: float = 0.2
+    image_rows: int = 480
+    image_cols: int = 752
+
+    def replace(self, **kw) -> "SuperGlueOptions":
         return dataclasses.replace(self, **kw)
 
 

@@ -12,7 +12,9 @@ flattening of ``models/train_superpoint.py:save_params_npz``); the tree comes
 back as ``{"params": {...}}`` with float32 leaves.
 
 ``init_state`` draws the initial parameters of a model trained from
-scratch, with Flax's defaults.
+scratch, with Flax's defaults.  ``init_superglue_state`` draws SuperGlue's
+seeded weights under the public checkpoint's names (no trained SuperGlue
+weights are in the repository).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ def load_default_disk() -> Optional[dict]:
 
 TRUNCATED_NORMAL_STD = 0.87962566103423978  # std of a standard normal cut at +-2 (Flax's variance_scaling)
 PRELU_INIT = 0.25
+SUPERGLUE_FINAL_GAIN = 32.0  # the seeded SuperGlue's final projection, in units of torch's default width
 
 
 @torch.no_grad()
@@ -84,3 +87,44 @@ def init_state(model: nn.Module, generator: torch.Generator) -> nn.Module:
         else:
             raise ValueError(f"init_state: no initial value for parameter {name} of shape {tuple(p.shape)}")
     return model
+
+
+@torch.no_grad()
+def init_superglue_state(model: nn.Module, generator: torch.Generator) -> dict:
+    """Seeded weights for ``models.superglue.SuperGlue`` as torch initialises
+    the public model: each 1x1 convolution's weight and bias uniform in
+    +-1/sqrt(fan_in), but the last bias of the keypoint encoder and of each
+    GNN layer's MLP, which the public code sets to 0; BatchNorm's scale 1,
+    shift 0 and eval statistics 0 and 1; ``bin_score`` 1.  The final
+    projection's weight is drawn SUPERGLUE_FINAL_GAIN times wider: at torch's
+    width the scores of unit descriptors stay within about 0.1 of each
+    other, Sinkhorn's plan is flat and nothing passes the match threshold,
+    while at this width the scores span several units, as a trained model's
+    do, and the seeded network matches about a third of the keypoints of two
+    views of one scene.  Every value is drawn on the CPU from ``generator``
+    in the order of the state dict.  Returns the state dict (float32 CPU
+    tensors, the public names)."""
+    zero_bias = {"kenc.encoder.%d.bias" % (len(model.kenc.encoder) - 1)}
+    zero_bias |= {"gnn.layers.%d.mlp.%d.bias" % (i, len(layer.mlp) - 1) for i, layer in enumerate(model.gnn.layers)}
+    convs = {name for name, m in model.named_modules() if isinstance(m, nn.Conv1d)}
+    state = {}
+    for name, t in model.state_dict().items():
+        owner, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+        if owner in convs:
+            fan_in = model.get_submodule(owner).weight.shape[1]
+            bound = 1.0 / fan_in ** 0.5
+            draw = torch.rand(t.shape, generator=generator, dtype=torch.float32) * (2 * bound) - bound
+            if name == "final_proj.weight":
+                draw = draw * SUPERGLUE_FINAL_GAIN
+            state[name] = torch.zeros(t.shape) if name in zero_bias else draw
+        elif leaf in ("weight", "running_var"):
+            state[name] = torch.ones(t.shape)
+        elif leaf in ("bias", "running_mean"):
+            state[name] = torch.zeros(t.shape)
+        elif leaf == "num_batches_tracked":
+            state[name] = torch.zeros((), dtype=torch.int64)
+        elif name == "bin_score":
+            state[name] = torch.tensor(1.0)
+        else:
+            raise ValueError(f"init_superglue_state: no initial value for {name} of shape {tuple(t.shape)}")
+    return state

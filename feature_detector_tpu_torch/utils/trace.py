@@ -30,9 +30,11 @@ ranges: they add no event to the profiler's trace.
 
 Closed spans wait in a bounded buffer (``CAPACITY`` spans; the oldest go
 first, counted by ``dropped()``).  ``spans()`` lists them; ``summary()``
-gives calls, host ms and device ms per span name and the launch counters
-that the hand kernels' modules register (``count_launches``).  The tracer
-is one per process, like the counters.
+gives calls, host ms and device ms per span name, the launch counters that
+the hand kernels' modules register (``count_launches``) and the counters of
+work that the paths add to with ``count`` (pairs, keypoints, iterations),
+which count whatever the switch says.  The tracer is one per process, like
+the counters.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ _dropped = 0
 _top_ids = itertools.count()
 _local = threading.local()  # each thread's stack of open spans
 _counters: dict = {}  # launch counter name -> the function whose ``launches`` it reads
+_totals: dict = {}  # work counter name -> its total: an int, or a 0-d tensor on the device it counts on
 
 
 class _NoSpan:
@@ -165,6 +168,20 @@ def count_launches(name: str, fn) -> None:
     _counters[name] = fn
 
 
+def count(name: str, value=1) -> None:
+    """Adds ``value`` to the work counter ``name``: an int, or a 0-d
+    integer tensor, which is added on its own device so that counting waits
+    for nothing.  Counts whether or not anything records; ``counters()``
+    reads the totals."""
+    _totals[name] = _totals.get(name, 0) + value
+
+
+def counters() -> dict:
+    """The work counters' totals as ints (reading a total kept on the card
+    waits for it)."""
+    return {name: int(v) for name, v in _totals.items()}
+
+
 def spans() -> list:
     """The recorded spans, oldest first, each closed."""
     return list(_buffer)
@@ -187,7 +204,7 @@ def summary() -> dict:
     """For an operator: per span name its calls, host ms and device ms
     (None where no call took an event pair), summed over the buffer; the
     spans dropped; the registered launch counters of the kernel modules
-    imported so far.  Waits for the card first, since device times exist
+    imported so far; the work counters.  Waits for the card first, since device times exist
     only once it has passed the spans' end events."""
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -200,4 +217,4 @@ def summary() -> dict:
         if ms is not None:
             row["device_ms"] = (row["device_ms"] or 0.0) + ms
     return {"spans": by_name, "dropped": _dropped,
-            "launches": {name: fn.launches for name, fn in _counters.items()}}
+            "launches": {name: fn.launches for name, fn in _counters.items()}, "counters": counters()}

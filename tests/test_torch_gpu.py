@@ -670,6 +670,63 @@ def test_match_float_on_card_equals_cpu(cuda, kw):
     assert int(out["cpu"][2].sum()) >= 50
 
 
+def test_superglue_on_card_within_the_cells_limits(cuda):
+    """The first query of ``superglue.query16`` (seed 5) against its scene's
+    16 views: 16 pairs at capacity 1,024 from SuperPoint on the card, the
+    bf16 program against the float32 reference pair by pair, within the
+    cell's limits on the log-assignment's gap, the matches equal but for
+    near ties, and the iteration counter at 100 a call."""
+    from bench_cuda import frames, harness
+    from bench_cuda.pipelines import sp_superglue as pipe
+    from bench_cuda.reference import superglue as ref_sg
+    from feature_detector_tpu_torch.core.config import SuperGlueOptions
+    from feature_detector_tpu_torch.match.superglue import SuperGlueMatcher
+    from feature_detector_tpu_torch.models.superglue import SuperGlue
+    from feature_detector_tpu_torch.models.weights import init_superglue_state
+    from feature_detector_tpu_torch.utils import trace
+
+    cfg = harness.load_config(harness.load_benchmark(), "superpoint_superglue_752x480")
+    d, sg_cfg, seed = cfg["detector"], cfg["superglue"], 5
+    det = NNFeaturePointDetector(NNDetectorOptions(
+        max_image_rows=480, max_image_cols=752, max_number_of_detected_features=d["max_number_of_detected_features"],
+        min_feature_distance=d["min_feature_distance"], min_response=d["min_response"],
+        model_type=NNModelType.SUPERPOINT_NMS, compute_descriptors=True), device=cuda)
+    det.initialize()
+    db_frames, queries = pipe.query_layout(frames.load_mix("query16", harness.ROOT), seed, 480, 752, cuda)
+    views = [det.detect(f) for f in db_frames[0]]
+    db = Features(*(torch.stack([getattr(f, k) for f, _ in views]) for k in ("uv", "response", "valid")))
+    db_desc = torch.stack([x for _, x in views])
+    qf, qd = det.detect(queries[0])
+    state = init_superglue_state(SuperGlue(), torch.Generator().manual_seed(seed))
+    sg = SuperGlueMatcher(SuperGlueOptions(), device=cuda)
+    sg.initialize(state)
+    zs = []
+    sg.model.register_forward_hook(lambda mod, args, out: zs.append(out))
+    before = trace.counters().get("superglue.sinkhorn_iterations", 0)
+    out = sg.match_batch(qf, qd, db, db_desc)
+    assert trace.counters()["superglue.sinkhorn_iterations"] - before == 100
+    tensors = ref_sg.to_device(state, cuda)
+    v = qf.valid
+    rows = torch.cat([torch.nonzero(v)[:, 0], torch.tensor([1024], device=cuda)])
+    gaps, sizes, entries, matched = [], [], 0, 0
+    for j in range(16):
+        dv = db.valid[j]
+        cols = torch.cat([torch.nonzero(dv)[:, 0], torch.tensor([1024], device=cuda)])
+        want = ref_sg.forward(tensors, sg_cfg, 480, 752, qf.uv[v], qf.response[v], qd[v], db.uv[j][dv],
+                              db.response[j][dv], db_desc[j][dv])
+        got = zs[0][j][rows][:, cols]
+        gaps.append(float((got - want).abs().mean()))
+        sizes.append(got.numel())
+        entries += got.numel()
+        index, near = ref_sg.select(got.cpu().numpy(), sg_cfg["match_threshold"])
+        assert ((out.index[j][v].cpu().numpy() != index) & ~near).sum() == 0
+        assert not bool(out.valid[j][~v].any())
+        matched += int((index >= 0).sum())
+    pooled = sum(g * n for g, n in zip(gaps, sizes)) / entries
+    assert int(v.sum()) >= 500 and matched >= 100
+    assert pooled <= pipe.ASSIGN_ERR_LIMIT and max(gaps) <= pipe.ASSIGN_PAIR_LIMIT, gaps
+
+
 # --------------------------------------------------------------------------
 # The fused chunked VO (slam/)
 # --------------------------------------------------------------------------
